@@ -1,0 +1,155 @@
+"""Build, load and launch the hand-written CUDA kernels under csrc/.
+
+The sources are compiled once per content hash with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v
+
+into ``_build/<hash>/`` beside this file (listed in .gitignore), at the
+first launch, and the shared library is loaded with ctypes.  Every C entry
+takes its pointers and the stream as ``void*`` and returns
+``cudaGetLastError()``; ``launch`` raises if that is not 0.  A failed build
+raises: nothing falls back to the plain versions.
+
+Each wrapper counts its launches in ``LAUNCHES`` where it launches, so a run
+can show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from collections import Counter
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+SOURCES = ("bls12_381_g1.cu", "secp256k1_ladder.cu")
+HEADERS = ("field32.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# C entry -> argtypes after the leading pointers (all entries end in a stream)
+_ENTRIES = {
+    "raiko_bls12_381_ec_add": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
+    "raiko_bls12_381_weighted_fold": 2 * [ctypes.c_void_p] + [ctypes.c_longlong, ctypes.c_int],
+    "raiko_secp256k1_shamir_ladder": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
+}
+
+
+class LaunchCounter:
+    """Launch counts per kernel, safe across the server's worker threads."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: Counter = Counter()
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self._counts[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts.clear()
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+
+LAUNCHES = LaunchCounter()
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_INFO: dict = {}
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> str:
+    """Compile the sources if this content hash has no library yet; returns
+    the library's path.  The ptxas report goes to build.log beside it."""
+    out_dir = os.path.join(BUILD_ROOT, _source_hash())
+    lib_path = os.path.join(out_dir, "libraiko_kernels.so")
+    log_path = os.path.join(out_dir, "build.log")
+    if os.path.exists(lib_path):
+        BUILD_INFO.update(path=lib_path, log=log_path, seconds=0.0, cached=True)
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(CSRC, s) for s in SOURCES]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    with open(log_path, "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)
+    BUILD_INFO.update(path=lib_path, log=log_path, seconds=seconds, cached=False)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, args in _ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(entry: str, counter: str, *args) -> None:
+    """Call C entry `entry` on torch's current stream and count the launch
+    under `counter`.  Tensor arguments pass their data pointers."""
+    fn = getattr(library(), entry)
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = fn(*c_args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+    LAUNCHES.add(counter)
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, tail: tuple) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` whose trailing
+    dimensions are `tail`."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensor on {t.device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape[-len(tail):]) != tail:
+        raise ValueError(f"{name}: expected trailing shape {tail}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,77 @@
+"""BLS12-381 G1 kernels on the card: B1 ``ec_add`` and B2 ``ec_weighted_fold``.
+
+Counterpart of raiko_tpu/ops/ec_pallas.py; the CUDA source is
+csrc/bls12_381_g1.cu (its header note says what bounds each kernel on the
+H100 and how the design answers it).
+
+Both wrappers take points in the kernels' layout, (..., 3, 12) int32 tensors
+holding 32-bit Montgomery limbs (convert.pack32 of the public (..., 3, 24)
+layout).  On a CUDA tensor a wrapper launches its kernel or raises; only a
+CPU tensor goes to the plain version beside it, which unpacks, runs the
+kzg/curve.py formulas and packs again, bit for bit the same result.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import convert, kernels
+from ..kzg import curve
+
+NLIMBS32 = 12
+
+# Rows per plain-version chunk: one stacked mont_mul holds a
+# (6·rows, 24, 47) int64 temporary.  On the CPU 256 rows (14 MB) keep it
+# near the caches and ran 2-3x faster than 2048.
+_PLAIN_ROWS = 256
+
+
+def ec_add_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Plain torch B1: complete addition of (M, 3, 12) packed points."""
+    outs = []
+    for i in range(0, p.shape[0], _PLAIN_ROWS):
+        a = convert.unpack32(p[i : i + _PLAIN_ROWS])
+        b = convert.unpack32(q[i : i + _PLAIN_ROWS])
+        outs.append(convert.pack32(curve.add(a, b)))
+    return torch.cat(outs) if outs else p.clone()
+
+
+def ec_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Batched complete G1 addition, bit-exact with kzg/curve.py:add.
+
+    p, q: (M, 3, 12) int32 packed Montgomery projective -> (M, 3, 12)."""
+    if p.shape != q.shape or p.dim() != 3 or p.shape[1:] != (3, NLIMBS32):
+        raise ValueError(f"ec_add: expected two (M, 3, 12) tensors, got {p.shape}, {q.shape}")
+    if p.device.type == "cpu" and q.device.type == "cpu":
+        return ec_add_plain(p, q)
+    kernels.check(p, "ec_add p", torch.int32, (3, NLIMBS32))
+    kernels.check(q, "ec_add q", torch.int32, (3, NLIMBS32))
+    out = torch.empty_like(p)
+    if p.shape[0]:
+        kernels.launch("raiko_bls12_381_ec_add", "ec_add", p, q, out, p.shape[0])
+    return out
+
+
+def ec_weighted_fold_plain(vals: torch.Tensor) -> torch.Tensor:
+    """Plain torch B2: a Horner chain of kzg/curve.py double and add."""
+    v = convert.unpack32(vals)
+    acc = v[:, -1]
+    for j in range(v.shape[1] - 2, -1, -1):
+        acc = curve.add(curve.double(acc), v[:, j])
+    return convert.pack32(acc)
+
+
+def ec_weighted_fold(vals: torch.Tensor) -> torch.Tensor:
+    """Σ_j 2^j · vals[:, j] for vals (B, J, 3, 12) packed Montgomery
+    projective -> (B, 3, 12): the Pippenger bucket recombination, one
+    thread per batch entry."""
+    if vals.dim() != 4 or vals.shape[2:] != (3, NLIMBS32) or vals.shape[1] < 1:
+        raise ValueError(f"ec_weighted_fold: expected (B, J >= 1, 3, 12), got {vals.shape}")
+    if vals.device.type == "cpu":
+        return ec_weighted_fold_plain(vals)
+    kernels.check(vals, "ec_weighted_fold vals", torch.int32, (3, NLIMBS32))
+    bsz, j = vals.shape[:2]
+    out = torch.empty((bsz, 3, NLIMBS32), dtype=torch.int32, device=vals.device)
+    if bsz:
+        kernels.launch("raiko_bls12_381_weighted_fold", "ec_weighted_fold", vals, out, bsz, j)
+    return out
