@@ -4,28 +4,39 @@
     python3 chip_smoke.py             # the smoke run below
     python3 chip_smoke.py --profile DIR   # where a commitment's and a request's time goes
 
-Needs one CUDA card and the repository checkout around this file.  JAX is
-refused before anything is imported, so an import of it anywhere on the
-port's path fails the run.  Each phase prints one JSON line; any failure
-raises and exits non-zero.
+Needs one CUDA card and the repository checkout around this file.  JAX and
+the JAX package (``raiko_tpu``) are refused before anything is imported, so
+an import of either anywhere on the port's path fails the run.  Each phase
+prints one JSON line; any failure raises and exits non-zero.
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: compile the CUDA sources under raiko_tpu_torch/csrc with nvcc;
-3. kernels: each kernel of the served path against its plain PyTorch
-   version on the card, bit for bit, at the path's shapes, with both times:
+2. build: compile the CUDA sources under raiko_tpu_torch/csrc with nvcc,
+   one process per source, all started together;
+3. kernels: each kernel against its plain PyTorch version on the card, bit
+   for bit (tolerance 0: field arithmetic is exact), at its path's shapes,
+   with both times and the least time the card could take (bound):
    B1 ec_add at M = 131,072, B2 ec_weighted_fold at B = 1 and 4 (J = 256),
-   B4 shamir_ladder at B = 128 real signatures;
+   B4 shamir_ladder at B = 128 real signatures; B5 ntt at 4,160 x 4,096
+   and intt at 4,160 x 1,024 (the keccak chunk's LDE and interpolation),
+   both at 64 x 2^14 and 1 x 2^20, with the round trip;
+   poseidon2_hash_rows at 4,096 rows x 4,160 columns (the LDE's transpose)
+   and poseidon2_compress at 2,048 pairs;
 4. kzg: the zero blob's versioned hash against its published value, and a
-   random full blob's commitment and opening proof against the host
-   reference, the proof passing verify_kzg_proof;
+   random full blob's commitment and opening proof against the host path,
+   the proof passing verify_kzg_proof;
 5. serve: the port's proof service (``raiko_tpu_torch.host.cli --device
    cuda``) answers v2 ``native`` proof requests for three 100-tx taiko_a7
-   blob blocks from the chain simulator; the kernels' launch counts are
-   reset just before the requests and must all be positive after them;
-6. check: the reference orchestrator proves each block again on its host
-   path (host MSM, per-tx sender recovery; ``seams.host_path``), and each
-   served ``input`` and ``kzg_proof`` must equal its result, the proof
-   verifying; no JAX module was loaded.
+   blob blocks from the port's chain simulator; the launch counts are reset
+   just before the requests and B1, B2 and B4 must all be positive after;
+6. stark: the STARK trace commitment of the keccak sponge chunk (1,024 rows
+   x 4,160 columns, blowup 4) through ``commit_step`` on the card, counts
+   reset just before and B5 and both Poseidon2 kernels positive after; its
+   root equal to the same step's plain path (CPU tensors); its time by
+   stage; the flagship (256 x 48) root equal to the JAX step's constant;
+7. check: the port's orchestrator proves each served block again on its
+   host path (``device=None``: host MSM, per-tx sender recovery, no
+   kernel), and each served ``input`` and ``kzg_proof`` must equal its
+   result, the proof verifying; no JAX or ``raiko_tpu`` module was loaded.
 
 The last two lines are the kernels' summary and the device line.
 
@@ -40,11 +51,13 @@ from __future__ import annotations
 
 import sys
 
-# The card's machine may have JAX installed.  Refuse it before anything is
-# imported: a None entry makes ``import jax`` raise ModuleNotFoundError
-# (and ``importlib.util.find_spec`` report it absent), so nothing on the
-# port's path can reach JAX unnoticed.
-for _name in ("jax", "jaxlib"):
+# The card's machine may have JAX installed, and the checkout holds the JAX
+# package.  Refuse both before anything is imported: a None entry makes the
+# import raise ModuleNotFoundError (and ``importlib.util.find_spec`` report
+# it absent), so nothing on the port's path can reach either unnoticed.
+# Only the top-level names: ``raiko_tpu_torch`` still imports.
+REFUSED = ("jax", "jaxlib", "raiko_tpu")
+for _name in REFUSED:
     sys.modules[_name] = None
 
 import json
@@ -55,6 +68,25 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20240613
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+IMAD_PER_SM_PER_CLOCK = 64  # 32-bit integer multiply(-add)s, compute capability 9.0
+# the JAX flagship step's root on the (256, 48) default_rng(0) trace
+# (__graft_entry__.entry()), Montgomery form
+FLAGSHIP_ROOT = [1103079180, 844803899, 311541641, 1509639592,
+                 1993886486, 1956685620, 1597694602, 1842386190]
+KECCAK_ROWS, KECCAK_COLS = 1024, 4160  # provers/tpu_stark.py:323, stark/airs/keccak_air.py:43-45
+SOURCES = {
+    "ec_add": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:244"),
+    "ec_weighted_fold": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:302"),
+    "shamir_ladder": ("raiko_tpu_torch/csrc/secp256k1_ladder.cu", "raiko_tpu/ops/secp_pallas.py:254"),
+    "ntt": ("raiko_tpu_torch/csrc/babybear_ntt.cu", "raiko_tpu/ops/ntt_pallas.py:180"),
+    "intt": ("raiko_tpu_torch/csrc/babybear_ntt.cu", "raiko_tpu/ops/ntt_pallas.py:194"),
+    # no Pallas kernel: the XLA sponge and compression they replace
+    "poseidon2_hash_rows": ("raiko_tpu_torch/csrc/babybear_poseidon2.cu", "raiko_tpu/ops/poseidon2.py:316"),
+    "poseidon2_compress": ("raiko_tpu_torch/csrc/babybear_poseidon2.cu", "raiko_tpu/ops/poseidon2.py:177"),
+}
+SERVED = ("ec_add", "ec_weighted_fold", "shamir_ladder")
+STARK = ("ntt", "intt", "poseidon2_hash_rows", "poseidon2_compress")
 
 
 def emit(phase: str, **fields) -> None:
@@ -90,21 +122,46 @@ def once_ms(fn):
 
 
 def max_abs_err(a, b) -> int:
-    """Largest difference between two int32 tensors of u32 limbs."""
+    """Largest difference between two int32 tensors of u32 words."""
     return int(((a.long() & 0xFFFFFFFF) - (b.long() & 0xFFFFFFFF)).abs().max().item())
 
 
-def phase_device():
+class Card:
+    """The card's peak rates, for the least time a kernel's work could take:
+    the larger of its bytes (each input read once, each output written
+    once) over the device-memory rate and its 32-bit integer multiplies
+    over the IMAD rate at the card's maximum SM clock."""
+
+    def __init__(self, smi: str, max_sm_mhz: float):
+        import torch
+
+        self.smi = smi
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.imad_per_s = self.sms * IMAD_PER_SM_PER_CLOCK * max_sm_mhz * 1e6
+
+    def bound(self, nbytes: float, mults: float) -> tuple[float, str]:
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = mults / self.imad_per_s * 1e3
+        return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_device() -> Card:
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    def smi(query: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+
+    name_power = smi("name,power.limit")
+    print(name_power, flush=True)
+    max_sm_mhz = float(smi("clocks.max.sm").split()[0])
+    card = Card(name_power, max_sm_mhz)
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi)
-    return smi
+         torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=name_power,
+         max_sm_mhz=max_sm_mhz, sms=card.sms, imad_per_s=card.imad_per_s)
+    return card
 
 
 def phase_build():
@@ -118,14 +175,42 @@ def phase_build():
          ptxas=ptxas)
 
 
-def phase_kernels(setup32):
+def check_kernel(card: Card, results: dict, name: str, shape, got, want, plain_ms: float, ms: float,
+                 nbytes: float, mults: float, record: bool = True, **extra) -> None:
+    """Emit one kernel's comparison; raise unless it equals its plain version."""
+    import torch
+
+    equal = bool(torch.equal(got, want))
+    err = max_abs_err(got, want) if got.numel() else 0
+    bound_ms, bound_by = card.bound(nbytes, mults)
+    emit("kernel", name=name, shape=list(shape), equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, **extra)
+    if not equal:
+        raise AssertionError(f"{name} at {list(shape)} differs from its plain version")
+    if record:
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+
+
+# 32-bit multiplies of one CIOS product of N-limb Montgomery values:
+# per limb of b, N 64-bit products a_j b_i, one m, N 64-bit products m p_j.
+def _fmul(n: int) -> int:
+    return n * (4 * n + 1)
+
+
+ADD_FMULS, DOUBLE_FMULS = 12, 8  # RCB15 Alg. 7 / Alg. 9 as csrc/field32.cuh runs them
+BB_MUL = 4  # BabyBear Montgomery product: lo, hi, m, umulhi(m, p)
+PERM_MULS = BB_MUL * ((8 * 16 * 4) + 13 * (4 + 16))  # Poseidon2: 772 products
+
+
+def phase_kernels(card: Card, setup32) -> dict:
     import numpy as np
     import torch
 
     from raiko_tpu_torch import convert
-    from raiko_tpu_torch.host.reference import secp256k1 as host
     from raiko_tpu_torch.kzg import curve
     from raiko_tpu_torch.ops import ec_cuda, secp, secp_cuda
+    from raiko_tpu_torch.utils import secp256k1 as host
 
     rng = np.random.default_rng(SEED)
     pick = lambda k: setup32[torch.as_tensor(rng.integers(0, setup32.shape[0], k), device="cuda")]
@@ -143,27 +228,19 @@ def phase_kernels(setup32):
     q[192:256] = inf
     got = ec_cuda.ec_add(p, q)
     want, plain_ms = once_ms(lambda: ec_cuda.ec_add_plain(p, q))
-    err = max_abs_err(got, want)
     ms = cuda_ms(lambda: ec_cuda.ec_add(p, q), 20)
-    emit("kernel", name="ec_add", shape=[m, 3, 12], equal=bool(torch.equal(got, want)),
-         max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    if not torch.equal(got, want):
-        raise AssertionError("B1 ec_add differs from its plain version")
-    results["ec_add"] = (err, ms, plain_ms)
+    check_kernel(card, results, "ec_add", [m, 3, 12], got, want, plain_ms, ms,
+                 nbytes=3 * m * 144, mults=m * ADD_FMULS * _fmul(12))
 
     # B2 at the MSM's J = 256, batch 1 (one blob) and 4 (msm_multi)
     for bsz in (1, 4):
         v = pick(bsz * 256).reshape(bsz, 256, 3, 12).contiguous()
         got = ec_cuda.ec_weighted_fold(v)
         want, plain_ms = once_ms(lambda: ec_cuda.ec_weighted_fold_plain(v))
-        err = max_abs_err(got, want)
         ms = cuda_ms(lambda: ec_cuda.ec_weighted_fold(v), 5)
-        emit("kernel", name="ec_weighted_fold", shape=[bsz, 256, 3, 12],
-             equal=bool(torch.equal(got, want)), max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        if not torch.equal(got, want):
-            raise AssertionError(f"B2 ec_weighted_fold differs from its plain version at B={bsz}")
-        if bsz == 1:
-            results["ec_weighted_fold"] = (err, ms, plain_ms)
+        check_kernel(card, results, "ec_weighted_fold", [bsz, 256, 3, 12], got, want, plain_ms, ms,
+                     nbytes=bsz * 257 * 144, mults=bsz * 255 * (ADD_FMULS + DOUBLE_FMULS) * _fmul(12),
+                     record=bsz == 1)
 
     # B4 at 128 real signatures
     items = []
@@ -176,26 +253,145 @@ def phase_kernels(setup32):
     idx = torch.as_tensor(idx_np, device="cuda")
     got = secp_cuda.shamir_ladder(base, idx)
     want, plain_ms = once_ms(lambda: secp_cuda.shamir_ladder_plain(base, idx))
-    err = max_abs_err(got, want)
     ms = cuda_ms(lambda: secp_cuda.shamir_ladder(base, idx), 5)
     pubs = [secp.to_affine(pt) for pt in convert.unpack32(got).cpu().numpy()]
     ok_pubs = pubs == [host.recover_pubkey(*it) for it in items]
-    emit("kernel", name="shamir_ladder", shape=[128, 2, 3, 8], equal=bool(torch.equal(got, want)),
-         max_abs_err=err, ms=ms, plain_ms=plain_ms, pubkeys_match_host=ok_pubs)
-    if not torch.equal(got, want) or not ok_pubs:
-        raise AssertionError("B4 shamir_ladder differs from its plain version or the host")
-    results["shamir_ladder"] = (err, ms, plain_ms)
+    if not ok_pubs:
+        raise AssertionError("B4 shamir_ladder's public keys differ from the host's")
+    check_kernel(card, results, "shamir_ladder", [128, 2, 3, 8], got, want, plain_ms, ms,
+                 nbytes=128 * (192 + 1024 + 96),
+                 mults=128 * (ADD_FMULS + 256 * (ADD_FMULS + DOUBLE_FMULS)) * _fmul(8),
+                 pubkeys_match_host=ok_pubs)
     return results
+
+
+def _ntt_work(bsz: int, log_n: int, inverse: bool) -> tuple[float, float]:
+    """(bytes, 32-bit multiplies) of one B5 launch on (bsz, 2^log_n): each
+    element read once and written once (the twiddle tables are constants,
+    not the transform's inputs)."""
+    from raiko_tpu_torch.ops import ntt_cuda
+
+    n = 1 << log_n
+    prods = bsz * (n // 2) * log_n + (bsz * n if inverse else 0)  # butterflies, 1/N scale
+    if log_n > ntt_cuda.ROW_PASS_MAX_LOG_N:
+        prods += bsz * n  # cross twiddles
+    return 8 * bsz * n, BB_MUL * prods
+
+
+def phase_stark_kernels(card: Card) -> dict:
+    """B5 and the two Poseidon2 kernels against their plain versions."""
+    import numpy as np
+    import torch
+
+    from raiko_tpu_torch import convert
+    from raiko_tpu_torch.fields import babybear as bb
+    from raiko_tpu_torch.ops import ntt_cuda, poseidon2 as p2, poseidon2_cuda
+
+    rng = np.random.default_rng(SEED + 2)
+
+    def mont(shape) -> torch.Tensor:
+        return convert.bb_from_numpy(bb.np_to_mont(rng.integers(0, bb.P, shape, dtype=np.uint32)), "cuda")
+
+    results = {}
+    cases = [  # (name, shape, record): the keccak chunk's shapes are recorded
+        ("ntt", (KECCAK_COLS, 4 * KECCAK_ROWS), True),
+        ("intt", (KECCAK_COLS, KECCAK_ROWS), True),
+        ("ntt", (64, 1 << 14), False), ("intt", (64, 1 << 14), False),
+        ("ntt", (1, 1 << 20), False), ("intt", (1, 1 << 20), False),
+    ]
+    for name, shape, record in cases:
+        x = mont(shape)
+        kernel = getattr(ntt_cuda, name)
+        plain = getattr(ntt_cuda, f"{name}_plain")
+        got = kernel(x)
+        want, plain_ms = once_ms(lambda: plain(x))
+        ms = cuda_ms(lambda: kernel(x), 10)
+        back = (ntt_cuda.intt if name == "ntt" else ntt_cuda.ntt)(got)
+        round_trip = bool(torch.equal(back, x))
+        nbytes, mults = _ntt_work(shape[0], shape[1].bit_length() - 1, name == "intt")
+        check_kernel(card, results, name, shape, got, want, plain_ms, ms, nbytes, mults, record=record,
+                     round_trip=round_trip)
+        if not round_trip:
+            raise AssertionError(f"{name} at {list(shape)}: the round trip does not return its input")
+
+    # the commitment hashes the rows of the LDE's transpose: a strided view
+    lde = mont((KECCAK_COLS, 4 * KECCAK_ROWS))
+    rows = lde.T
+    got = poseidon2_cuda.poseidon2_hash_rows(rows)
+    want, plain_ms = once_ms(lambda: p2.hash_rows_plain(rows))
+    ms = cuda_ms(lambda: poseidon2_cuda.poseidon2_hash_rows(rows), 5)
+    nrows, width = rows.shape
+    check_kernel(card, results, "poseidon2_hash_rows", (nrows, width), got, want, plain_ms, ms,
+                 nbytes=4 * (nrows * width + nrows * p2.OUT),
+                 mults=nrows * -(-width // p2.RATE) * PERM_MULS)
+
+    pairs = mont((2048, 2 * p2.OUT))
+    got = poseidon2_cuda.poseidon2_compress(pairs)
+    want, plain_ms = once_ms(lambda: p2.compress_plain(pairs))
+    ms = cuda_ms(lambda: poseidon2_cuda.poseidon2_compress(pairs), 20)
+    check_kernel(card, results, "poseidon2_compress", (2048, 16), got, want, plain_ms, ms,
+                 nbytes=4 * 2048 * (16 + 8), mults=2048 * PERM_MULS)
+    return results
+
+
+def phase_stark() -> dict:
+    """The STARK trace commitment at the keccak chunk's shape, through the
+    port's entry point; returns the launches of that run."""
+    import numpy as np
+    import torch
+
+    from raiko_tpu_torch import convert, kernels
+    from raiko_tpu_torch.fields import babybear as bb
+    from raiko_tpu_torch.ops import merkle, ntt, poseidon2 as p2
+    from raiko_tpu_torch.stark.commit_step import commit_step
+    from raiko_tpu_torch.stark.prover import BLOWUP_LOG
+
+    rng = np.random.default_rng(SEED + 3)
+    trace = rng.integers(0, bb.P, (KECCAK_ROWS, KECCAK_COLS), dtype=np.uint32)
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.reset()
+    root, cold_ms = once_ms(lambda: commit_step(trace, "cuda"))
+    launches = kernels.LAUNCHES.snapshot()
+    _, warm_ms = once_ms(lambda: commit_step(trace, "cuda"))
+    t0 = time.perf_counter()
+    plain_root = commit_step(trace, "cpu")
+    plain_s = time.perf_counter() - t0
+    same = convert.bb_to_numpy(root).tolist() == convert.bb_to_numpy(plain_root).tolist()
+
+    # by stage, CUDA events, on the card
+    tm = bb.to_mont(convert.bb_from_numpy(trace, "cuda").T.contiguous())
+    coeffs = ntt.interpolate(tm)
+    lde = ntt.lde_from_coeffs(coeffs, BLOWUP_LOG, bb.GENERATOR)
+    leaves = p2.hash_rows(lde.T)
+    stages = {
+        "upload_to_mont_ms": cuda_ms(lambda: bb.to_mont(convert.bb_from_numpy(trace, "cuda").T.contiguous()),
+                                     5),
+        "interpolate_ms": cuda_ms(lambda: ntt.interpolate(tm), 5),
+        "lde_ms": cuda_ms(lambda: ntt.lde_from_coeffs(coeffs, BLOWUP_LOG, bb.GENERATOR), 5),
+        "hash_rows_ms": cuda_ms(lambda: p2.hash_rows(lde.T), 5),
+        "merkle_ms": cuda_ms(lambda: merkle.commit(leaves), 5),
+    }
+    flagship = commit_step(np.random.default_rng(0).integers(0, bb.P, (256, 48), np.uint32), "cuda")
+    flagship_ok = convert.bb_to_numpy(flagship).tolist() == FLAGSHIP_ROOT
+    emit("stark", trace=[KECCAK_ROWS, KECCAK_COLS], lde=[KECCAK_COLS, KECCAK_ROWS << BLOWUP_LOG],
+         root=convert.bb_to_numpy(root).tolist(), equal_plain_path=same, commit_cold_ms=cold_ms,
+         commit_warm_ms=warm_ms, plain_path_s=plain_s, launches=launches, flagship_root_ok=flagship_ok,
+         **stages)
+    if not same:
+        raise AssertionError("the card's commitment root differs from the plain path's")
+    if not flagship_ok:
+        raise AssertionError(f"the flagship root {convert.bb_to_numpy(flagship).tolist()} differs from JAX's")
+    return launches
 
 
 def random_blob(seed: int) -> bytes:
     """A full blob of random field elements."""
     import numpy as np
 
-    from raiko_tpu_torch.host.reference import kzg
+    from raiko_tpu_torch.kzg import eip4844
 
     rng = np.random.default_rng(seed)
-    words = rng.integers(0, 256, (kzg.FIELD_ELEMENTS_PER_BLOB, 32), dtype=np.uint8)
+    words = rng.integers(0, 256, (eip4844.FIELD_ELEMENTS_PER_BLOB, 32), dtype=np.uint8)
     words[:, 0] &= 0x3F  # < 2^254 < the BLS12-381 scalar modulus
     return words.tobytes()
 
@@ -203,53 +399,53 @@ def random_blob(seed: int) -> bytes:
 def phase_kzg():
     import torch
 
-    from raiko_tpu_torch import seams
-    from raiko_tpu_torch.host.reference import kzg as ref
     from raiko_tpu_torch.kzg import eip4844
 
     cuda = torch.device("cuda")
-    zero = eip4844.blob_to_kzg_commitment(bytes(ref.BYTES_PER_BLOB), device=cuda)
-    zero_vh = ref.commitment_to_version_hash(zero).hex()
+    zero = eip4844.blob_to_kzg_commitment(bytes(eip4844.BYTES_PER_BLOB), cuda)
+    zero_vh = eip4844.commitment_to_version_hash(zero).hex()
     if zero_vh != "010657f37554c781402a22917dee2f75def7ab966d7b770905398eba3c444014":
         raise AssertionError(f"zero-blob versioned hash {zero_vh}")
 
     blob = random_blob(SEED + 1)
     t0 = time.perf_counter()
-    commit = eip4844.blob_to_kzg_commitment(blob, device=cuda)
+    commit = eip4844.blob_to_kzg_commitment(blob, cuda)
     commit_s = time.perf_counter() - t0
-    z = ref.get_evaluation_point(blob, ref.commitment_to_version_hash(commit))
-    with seams.bound(cuda):
-        t0 = time.perf_counter()
-        proof, y = ref.compute_kzg_proof(blob, z, use_tpu=None)
-        proof_s = time.perf_counter() - t0
+    z = eip4844.get_evaluation_point(blob, eip4844.commitment_to_version_hash(commit))
     t0 = time.perf_counter()
-    host_commit = ref.blob_to_kzg_commitment(blob, use_tpu=False)
-    host_proof, host_y = ref.compute_kzg_proof(blob, z, use_tpu=False)
+    proof, y = eip4844.compute_kzg_proof(blob, z, cuda)
+    proof_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_commit = eip4844.blob_to_kzg_commitment(blob, None)
+    host_proof, host_y = eip4844.compute_kzg_proof(blob, z, None)
     host_s = time.perf_counter() - t0
-    verified = ref.verify_kzg_proof(commit, z, y, proof)
+    verified = eip4844.verify_kzg_proof(commit, z, y, proof)
     emit("kzg", zero_blob_versioned_hash="0x" + zero_vh, commitment_equal=commit == host_commit,
          proof_equal=(proof, y) == (host_proof, host_y), proof_verifies=verified,
          device_commit_s=commit_s, device_proof_s=proof_s, host_commit_and_proof_s=host_s)
     if commit != host_commit or (proof, y) != (host_proof, host_y) or not verified:
-        raise AssertionError("device KZG differs from the host reference or does not verify")
+        raise AssertionError("device KZG differs from the host path or does not verify")
 
 
-def build_chain(n_blocks: int, n_txs: int):
+def build_chain(n_blocks: int, n_txs: int, device):
     """The 100-tx taiko_a7 blob-block workload of tools/bench_block.py
     (80% storage churn over 20 contracts, 10% transfers, 10% calls into a
     contract that CALLs another and the identity precompile), n_blocks
-    times, registered with the provider.  Returns the L2 sim."""
-    from chainsim import ChainSim, TaikoSim
-    from raiko_tpu_torch.host import reference as ref
+    times, registered with the port's provider; block production runs its
+    device work on `device`.  Returns the L2 sim."""
+    from raiko_tpu_torch.core import provider
+    from raiko_tpu_torch.proto.types import Transaction
+    from raiko_tpu_torch.testing.chainsim import ChainSim, TaikoSim
+    from raiko_tpu_torch.utils import secp256k1
 
     keys = [0xBE7C + i for i in range(8)]
-    senders = [ref.secp256k1.pubkey_to_address(ref.secp256k1.pubkey(k)) for k in keys]
-    ref.clear_sims()
-    l1 = ChainSim("ethereum")
+    senders = [secp256k1.pubkey_to_address(secp256k1.pubkey(k)) for k in keys]
+    provider._SIM_REGISTRY.clear()
+    l1 = ChainSim("ethereum", device=device)
     for s in senders:
         l1.fund(s, 10**20)
     l1.produce_block([])
-    l2 = TaikoSim(l1, "taiko_a7")
+    l2 = TaikoSim(l1, "taiko_a7", device=device)
     for s in senders:
         l2.fund(s, 10**20)
     n_contracts = max(1, min(20, n_txs // 5))
@@ -276,7 +472,7 @@ def build_chain(n_blocks: int, n_txs: int):
     nonces = [0] * len(keys)
 
     def mktx(si, to, value=0, gas=200_000):
-        tx = ref.Transaction(tx_type=2, chain_id=167009, nonce=nonces[si], max_priority_fee_per_gas=1,
+        tx = Transaction(tx_type=2, chain_id=167009, nonce=nonces[si], max_priority_fee_per_gas=1,
                          max_fee_per_gas=100, gas_limit=gas, to=to, value=value)
         tx.sign(keys[si])
         nonces[si] += 1
@@ -293,8 +489,8 @@ def build_chain(n_blocks: int, n_txs: int):
             else:
                 txs.append(mktx(si, contracts[i % n_contracts]))
         l2.produce_taiko_block(txs, use_blob=True)
-    ref.register_sim("ethereum", l1)
-    ref.register_sim("taiko_a7", l2)
+    provider.register_sim("ethereum", l1)
+    provider.register_sim("taiko_a7", l2)
     return l2
 
 
@@ -324,7 +520,7 @@ def phase_serve(device: str, n_blocks: int, n_txs: int):
     argv = ["--device", device, "--address", "127.0.0.1", "--port", str(port), "--log-level", "warning"]
     with BackgroundServer(argv) as srv:
         t0 = time.perf_counter()
-        build_chain(n_blocks, n_txs)
+        build_chain(n_blocks, n_txs, srv.device)
         emit("chain", blocks=n_blocks, txs_per_block=n_txs, seconds=time.perf_counter() - t0,
              device=str(srv.device))
         base = f"http://127.0.0.1:{port}"
@@ -350,21 +546,22 @@ def phase_serve(device: str, n_blocks: int, n_txs: int):
 
 
 def check_requests(served: list[dict]) -> None:
-    """Prove each served block again with the reference orchestrator on its
-    host path; the served instance hash and KZG proof must equal its own,
-    and the proof must verify."""
-    from raiko_tpu_torch import seams
-    from raiko_tpu_torch.host import reference as ref
+    """Prove each served block again with the port's orchestrator on its
+    host path (device None: host MSM, per-tx recovery, no kernel); the
+    served instance hash and KZG proof must equal its own, and the proof
+    must verify."""
+    from raiko_tpu_torch.chain import SupportedChainSpecs
+    from raiko_tpu_torch.core.interfaces import ProofRequest, ProofType
+    from raiko_tpu_torch.core.orchestrator import Raiko
+    from raiko_tpu_torch.kzg import eip4844 as kzg
 
-    kzg = ref.kzg
     for blk, proof in enumerate(served, start=1):
-        req = ref.ProofRequest(block_number=blk, network="taiko_a7", proof_type=ref.ProofType.NATIVE)
-        raiko = ref.Raiko(ref.SupportedChainSpecs(), req)
+        req = ProofRequest(block_number=blk, network="taiko_a7", proof_type=ProofType.NATIVE)
+        raiko = Raiko(SupportedChainSpecs(), req, None)
         t0 = time.perf_counter()
-        with seams.host_path():
-            gi = raiko.generate_input()
-            out = raiko.get_output(gi)
-            want = raiko.prove(gi, out)
+        gi = raiko.generate_input()
+        out = raiko.get_output(gi)
+        want = raiko.prove(gi, out)
         host_s = time.perf_counter() - t0
         tx_data, commitment = gi.taiko.tx_data, bytes(gi.taiko.blob_commitment)
         z = kzg.get_evaluation_point(tx_data, kzg.commitment_to_version_hash(commitment))
@@ -380,10 +577,10 @@ def check_requests(served: list[dict]) -> None:
             raise AssertionError(f"block {blk}: the served proof differs from the host path's: {checks}")
 
 
-def jax_modules() -> list[str]:
-    """JAX modules loaded in this process (the refusal above lets none)."""
-    return sorted(m for m, mod in sys.modules.items()
-                  if m.split(".")[0] in ("jax", "jaxlib") and mod is not None)
+def refused_modules() -> list[str]:
+    """Modules of JAX or of the JAX package loaded in this process (the
+    refusal above lets none)."""
+    return sorted(m for m, mod in sys.modules.items() if m.split(".")[0] in REFUSED and mod is not None)
 
 
 def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
@@ -394,9 +591,10 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from raiko_tpu_torch import convert, kernels, seams
+    from raiko_tpu_torch import convert, kernels
+    from raiko_tpu_torch.chain import SupportedChainSpecs
+    from raiko_tpu_torch.core.interfaces import ProofRequest, ProofType
     from raiko_tpu_torch.core.orchestrator import Raiko
-    from raiko_tpu_torch.host import reference as ref
     from raiko_tpu_torch.kzg import eip4844
     from raiko_tpu_torch.ops import ec_cuda, msm
 
@@ -419,11 +617,11 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
 
     blob = random_blob(SEED + 1)
     points32 = convert.pack32(eip4844._device_setup(cuda))
-    limbs = torch.as_tensor(ref.kzg.blob_to_limbs(blob).astype("int64"), device=cuda).unsqueeze(0)
+    limbs = torch.as_tensor(eip4844.blob_to_limbs(blob).astype("int64"), device=cuda).unsqueeze(0)
     fold_in = points32[:256].reshape(1, 256, 3, ec_cuda.NLIMBS32).contiguous()
-    eip4844.blob_to_kzg_commitment(blob, device=cuda)  # warm-up
+    eip4844.blob_to_kzg_commitment(blob, cuda)  # warm-up
     for rep in range(3):
-        _, commit_ms = once_ms(lambda: eip4844.blob_to_kzg_commitment(blob, device=cuda))
+        _, commit_ms = once_ms(lambda: eip4844.blob_to_kzg_commitment(blob, cuda))
         buckets, bucket_ms = once_ms(lambda: msm.bucket_matrix(points32, limbs))
         _, combine_ms = once_ms(lambda: msm.combine_buckets(buckets))
         _, fold_ms = once_ms(lambda: ec_cuda.ec_weighted_fold(fold_in))
@@ -434,7 +632,7 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(5):
-            eip4844.blob_to_kzg_commitment(blob, device=cuda)
+            eip4844.blob_to_kzg_commitment(blob, cuda)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_ms, top = device_ms(prof)
@@ -442,11 +640,10 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
          top_device_ms=top)
     save(prof, "profile_commit.txt")
 
-    with seams.bound(cuda):  # block production re-executes the txs
-        build_chain(n_blocks, n_txs)
+    build_chain(n_blocks, n_txs, cuda)
     for blk in range(1, n_blocks + 1):
-        req = ref.ProofRequest(block_number=blk, network="taiko_a7", proof_type=ref.ProofType.NATIVE)
-        raiko = Raiko(ref.SupportedChainSpecs(), req, cuda)
+        req = ProofRequest(block_number=blk, network="taiko_a7", proof_type=ProofType.NATIVE)
+        raiko = Raiko(SupportedChainSpecs(), req, cuda)
         kernels.LAUNCHES.reset()
         with profile(activities=activities) as prof:
             gi, pre_ms = once_ms(raiko.generate_input)
@@ -473,37 +670,39 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
     sys.path.insert(0, ROOT)
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
     from raiko_tpu_torch import convert
 
-    phase_device()
+    t_start = time.perf_counter()
+    card = phase_device()
     phase_build()
     if args.profile:
         phase_profile(os.path.abspath(args.profile), n_blocks=3, n_txs=100)
-        emit("nojax", jax_modules=jax_modules())
+        emit("refused", loaded=refused_modules())
         return 0
     setup32 = convert.pack32(convert.setup_points(torch.device("cuda")))
-    kres = phase_kernels(setup32)
+    kres = phase_kernels(card, setup32)
+    kres.update(phase_stark_kernels(card))
     phase_kzg()
     per_request, launches, served = phase_serve("cuda", n_blocks=3, n_txs=100)
     emit("serve", requests=len(per_request), seconds_per_request=per_request, launches=launches)
-    missing = [k for k in kres if launches.get(k, 0) <= 0]
+    missing = [k for k in SERVED if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the served path: {missing}")
+    stark_launches = phase_stark()
+    missing = [k for k in STARK if stark_launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the commitment path: {missing}")
+    launches.update({k: stark_launches[k] for k in STARK})
     check_requests(served)
-    loaded = jax_modules()
-    emit("nojax", jax_modules=loaded)
+    loaded = refused_modules()
+    emit("refused", loaded=loaded, seconds=time.perf_counter() - t_start)
     if loaded:
-        raise AssertionError(f"JAX was loaded: {loaded}")
-    sources = {
-        "ec_add": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:244"),
-        "ec_weighted_fold": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:302"),
-        "shamir_ladder": ("raiko_tpu_torch/csrc/secp256k1_ladder.cu", "raiko_tpu/ops/secp_pallas.py:254"),
-    }
+        raise AssertionError(f"JAX or the JAX package was loaded: {loaded}")
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
-         "launches": launches[k], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for k, (err, ms, plain_ms) in kres.items()
+        {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
+         "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+        for k, r in kres.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,22 +1,23 @@
-"""State carried from the reference package into the port: numpy in, tensors out.
+"""Layouts between numpy, the plain torch versions and the CUDA kernels.
 
-* The trusted-setup G1 points of ``raiko_tpu.kzg.eip4844.setup()`` as the
-  port's (4096, 3, 24) Montgomery tensor.
+* The trusted-setup G1 points of ``kzg.eip4844.setup()`` as a
+  (4096, 3, 24) Montgomery tensor.
 * The packing between the public layout (16-bit limbs in int64, as the
   reference's 16-bit limbs in u32) and the CUDA kernels' 32-bit limbs
   (carried as the bits of int32, since torch's uint32 lacks most ops).
   BLS12-381 uses 24 x 16 <-> 12 x 32 limbs and secp256k1 16 x 16 <-> 8 x 32.
   The Montgomery radix is the same either way (R = 2^384, R = 2^256), so
   only the packing changes.
+* BabyBear arrays: numpy uint32 (the JAX package's layout) <-> torch int32
+  (the kernels' layout; every element is < p < 2^31).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from raiko_tpu.kzg import eip4844 as ref_eip4844
-
-from .kzg import curve
+from .kzg import eip4844
 
 
 def pack32(limbs16: torch.Tensor) -> torch.Tensor:
@@ -35,5 +36,16 @@ def unpack32(words: torch.Tensor) -> torch.Tensor:
 
 def setup_points(device) -> torch.Tensor:
     """The trusted setup's G1 Lagrange points, (4096, 3, 24) int64 Montgomery."""
-    pts = curve.points_from_affine(ref_eip4844.setup()["g1_lagrange"])
-    return torch.as_tensor(pts.astype("int64"), device=device)
+    return eip4844._device_setup(torch.device(device))
+
+
+def bb_from_numpy(arr, device) -> torch.Tensor:
+    """BabyBear values (numpy uint32, each < p < 2^31) -> an int32 tensor
+    on `device` (the same bits)."""
+    words = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
+    return torch.tensor(words, device=device)  # a copy: the array stays the caller's
+
+
+def bb_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """BabyBear tensor (int32 or int64) -> numpy uint32."""
+    return t.detach().cpu().numpy().astype(np.uint32)

@@ -1,0 +1,2 @@
+"""Core orchestration: preflight, providers, proof dispatch
+(reference core/ crate)."""

@@ -1,0 +1,2 @@
+"""Host service: HTTP API, proof scheduler, metrics, cache
+(reference host/ crate)."""

@@ -1,12 +1,13 @@
 """Build, load and launch the hand-written CUDA kernels under csrc/.
 
-The sources are compiled once per content hash with
+The sources are compiled once per content hash, each by its own
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c
 
-into ``_build/<hash>/`` beside this file (listed in .gitignore), at the
-first launch, and the shared library is loaded with ctypes.  Every C entry
+all started together, and linked with ``nvcc -shared`` into
+``_build/<hash>/`` beside this file (listed in .gitignore), at the first
+launch; the shared library is loaded with ctypes.  Every C entry
 takes its pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()``; ``launch`` raises if that is not 0.  A failed build
 raises: nothing falls back to the plain versions.
@@ -30,18 +31,21 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("bls12_381_g1.cu", "secp256k1_ladder.cu")
-HEADERS = ("field32.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("bls12_381_g1.cu", "secp256k1_ladder.cu", "babybear_ntt.cu", "babybear_poseidon2.cu")
+HEADERS = ("field32.cuh", "babybear.cuh")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry -> argtypes after the leading pointers (all entries end in a stream)
 _ENTRIES = {
     "raiko_bls12_381_ec_add": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
     "raiko_bls12_381_weighted_fold": 2 * [ctypes.c_void_p] + [ctypes.c_longlong, ctypes.c_int],
     "raiko_secp256k1_shamir_ladder": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
+    "raiko_babybear_ntt": 5 * [ctypes.c_void_p] + [ctypes.c_longlong] + 3 * [ctypes.c_int]
+    + [ctypes.c_uint],
+    "raiko_poseidon2_hash_rows": 3 * [ctypes.c_void_p] + [ctypes.c_longlong, ctypes.c_int]
+    + 2 * [ctypes.c_longlong] + [ctypes.c_uint],
+    "raiko_poseidon2_compress": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
 }
 
 
@@ -91,8 +95,9 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile the sources if this content hash has no library yet; returns
-    the library's path.  The ptxas report goes to build.log beside it."""
+    """Compile the sources if this content hash has no library yet (one nvcc
+    per source, in parallel, then one link); returns the library's path.
+    The ptxas report goes to build.log beside it."""
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     lib_path = os.path.join(out_dir, "libraiko_kernels.so")
     log_path = os.path.join(out_dir, "build.log")
@@ -100,15 +105,36 @@ def build() -> str:
         BUILD_INFO.update(path=lib_path, log=log_path, seconds=0.0, cached=True)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(CSRC, s) for s in SOURCES]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [os.path.join(out_dir, f"{os.path.splitext(src)[0]}.{tag}.o") for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+                    for src, obj in zip(SOURCES, objs))
+    ]
+    log, failed = [], []
+    for cmd, proc in procs:
+        output = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (rc {proc.returncode}):\n{output[-4000:]}")
+    tmp = f"{lib_path}.{tag}"
+    if not failed:
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
     seconds = time.perf_counter() - t0
     with open(log_path, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)
     BUILD_INFO.update(path=lib_path, log=log_path, seconds=seconds, cached=False)
     return lib_path

@@ -16,9 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raiko_tpu.kzg import host_curve as hc
-
 from ..fields.limbs import FP
+from . import host_curve as hc
 
 
 def make_point(x_int: int, y_int: int) -> np.ndarray:

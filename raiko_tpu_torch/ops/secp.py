@@ -20,11 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raiko_tpu.utils import secp256k1 as host
-from raiko_tpu.utils.native import keccak256
-
 from .. import convert
 from ..fields.limbs import LimbField
+from ..utils import secp256k1 as host
+from ..utils.native import keccak256
 from . import secp_cuda
 
 NLIMBS = 16
@@ -214,8 +213,7 @@ def recover_senders(txs, device) -> list:
 
     Returns a list aligned with txs whose entries are 20-byte addresses or
     the ValueError to raise at that tx's slot: the contract of
-    raiko_tpu/evm/execute.py:_batch_recover_senders past its size and
-    policy checks."""
+    evm/execute.py:_batch_recover_senders past its size and policy checks."""
     items = []
     slots: list = [None] * len(txs)
     idxs = []

@@ -3,7 +3,8 @@
 Each lane of ``recover_pubkeys_batch`` (the plain Shamir ladder, kernel
 B4's CPU version) must equal ``raiko_tpu.utils.secp256k1.recover_pubkey``
 exactly, invalid lanes giving None; ``recover_senders`` must keep the
-contract of ``raiko_tpu.evm.execute._batch_recover_senders``.  The test
+contract of ``raiko_tpu.evm.execute._batch_recover_senders``, which the
+port's copy of ``evm/execute.py`` calls it under.  The test
 marked ``cuda`` holds the kernel against the plain ladder on a card.
 """
 
@@ -13,7 +14,8 @@ import torch
 
 from raiko_tpu.proto.types import Transaction
 from raiko_tpu.utils import secp256k1 as host
-from raiko_tpu_torch import convert, seams
+from raiko_tpu_torch import convert
+from raiko_tpu_torch.evm import execute
 from raiko_tpu_torch.ops import secp, secp_cuda
 
 
@@ -90,9 +92,11 @@ def test_recover_senders_keeps_the_execute_contract():
 
 
 def test_batch_recover_senders_policy():
-    # below the batch threshold, and off the card, the per-tx host path runs
-    assert seams._batch_recover_senders(_txs(15), device=CPU) is None
-    assert seams._batch_recover_senders(_txs(16), device=CPU) is None
+    # below the batch threshold, off the card, and with no device, the
+    # per-tx host path runs
+    assert execute._batch_recover_senders(_txs(15), CPU) is None
+    assert execute._batch_recover_senders(_txs(16), CPU) is None
+    assert execute._batch_recover_senders(_txs(16), None) is None
     assert secp.use_device_recovery(torch.device("cuda"))
     assert not secp.use_device_recovery(CPU)
 
