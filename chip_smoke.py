@@ -21,19 +21,28 @@ prints one JSON line; any failure raises and exits non-zero.
    both at 64 x 2^14 and 1 x 2^20, with the round trip;
    poseidon2_hash_rows at 4,096 rows x 4,160 columns (the LDE's transpose)
    and poseidon2_compress at 2,048 pairs;
-4. kzg: the zero blob's versioned hash against its published value, and a
+4. ops: the ops entry points that reach B3, B6 and the Keccak and SHA-256
+   kernels, counts reset just before and all four positive after: B3
+   ec_double at M = 131,072 (affine points, Z != 1, identities), B6
+   ntt_mxu at 64 x 2^14 and on the keccak chunk's LDE input (4,160 x
+   4,096, equal to B5's ntt there, B5's time beside it), keccak_f1600_batch
+   on 8,192 states, keccak256_batch over 8,192 messages of 32-532 bytes,
+   sha256_batch over 8,192 48-byte commitments and 1,024 messages of 0-299
+   bytes; then each kernel against its plain version, bit for bit, with
+   both times and its bound, and the digests against the host's;
+5. kzg: the zero blob's versioned hash against its published value, and a
    random full blob's commitment and opening proof against the host path,
    the proof passing verify_kzg_proof;
-5. serve: the port's proof service (``raiko_tpu_torch.host.cli --device
+6. serve: the port's proof service (``raiko_tpu_torch.host.cli --device
    cuda``) answers v2 ``native`` proof requests for three 100-tx taiko_a7
    blob blocks from the port's chain simulator; the launch counts are reset
    just before the requests and B1, B2 and B4 must all be positive after;
-6. stark: the STARK trace commitment of the keccak sponge chunk (1,024 rows
+7. stark: the STARK trace commitment of the keccak sponge chunk (1,024 rows
    x 4,160 columns, blowup 4) through ``commit_step`` on the card, counts
    reset just before and B5 and both Poseidon2 kernels positive after; its
    root equal to the same step's plain path (CPU tensors); its time by
    stage; the flagship (256 x 48) root equal to the JAX step's constant;
-7. check: the port's orchestrator proves each served block again on its
+8. check: the port's orchestrator proves each served block again on its
    host path (``device=None``: host MSM, per-tx sender recovery, no
    kernel), and each served ``input`` and ``kzg_proof`` must equal its
    result, the proof verifying; no JAX or ``raiko_tpu`` module was loaded.
@@ -70,6 +79,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20240613
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 IMAD_PER_SM_PER_CLOCK = 64  # 32-bit integer multiply(-add)s, compute capability 9.0
+# 32-bit integer add, shift, funnel shift and bitwise and/or/xor: 64 per SM
+# per clock each at compute capability 9.0 (CUDA C++ Programming Guide,
+# "Arithmetic Instructions" throughput table)
+LOGIC_PER_SM_PER_CLOCK = 64
+INT8_MACS_PER_S = 1979e12 / 2  # H100 SXM dense int8 tensor cores: 1,979 TOP/s, 2 per MAC
 # the JAX flagship step's root on the (256, 48) default_rng(0) trace
 # (__graft_entry__.entry()), Montgomery form
 FLAGSHIP_ROOT = [1103079180, 844803899, 311541641, 1509639592,
@@ -84,9 +98,15 @@ SOURCES = {
     # no Pallas kernel: the XLA sponge and compression they replace
     "poseidon2_hash_rows": ("raiko_tpu_torch/csrc/babybear_poseidon2.cu", "raiko_tpu/ops/poseidon2.py:316"),
     "poseidon2_compress": ("raiko_tpu_torch/csrc/babybear_poseidon2.cu", "raiko_tpu/ops/poseidon2.py:177"),
+    "ec_double": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:334"),
+    "ntt_mxu": ("raiko_tpu_torch/csrc/babybear_ntt_mxu.cu", "raiko_tpu/ops/ntt_mxu.py:183"),
+    # XLA in the JAX package
+    "keccak_f1600": ("raiko_tpu_torch/csrc/keccak_f1600.cu", "raiko_tpu/ops/keccak.py:65"),
+    "sha256_compress": ("raiko_tpu_torch/csrc/sha256.cu", "raiko_tpu/ops/sha256.py:54"),
 }
 SERVED = ("ec_add", "ec_weighted_fold", "shamir_ladder")
 STARK = ("ntt", "intt", "poseidon2_hash_rows", "poseidon2_compress")
+OPS = ("ec_double", "ntt_mxu", "keccak_f1600", "sha256_compress")
 
 
 def emit(phase: str, **fields) -> None:
@@ -128,9 +148,11 @@ def max_abs_err(a, b) -> int:
 
 class Card:
     """The card's peak rates, for the least time a kernel's work could take:
-    the larger of its bytes (each input read once, each output written
-    once) over the device-memory rate and its 32-bit integer multiplies
-    over the IMAD rate at the card's maximum SM clock."""
+    the largest of its bytes (each input read once, each output written
+    once) over the device-memory rate, its 32-bit integer multiplies over
+    the IMAD rate and its 32-bit logic/add operations over their rate, both
+    at the card's maximum SM clock, and its int8 multiply-adds over the
+    dense int8 tensor-core rate."""
 
     def __init__(self, smi: str, max_sm_mhz: float):
         import torch
@@ -138,10 +160,12 @@ class Card:
         self.smi = smi
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.imad_per_s = self.sms * IMAD_PER_SM_PER_CLOCK * max_sm_mhz * 1e6
+        self.logic_per_s = self.sms * LOGIC_PER_SM_PER_CLOCK * max_sm_mhz * 1e6
 
-    def bound(self, nbytes: float, mults: float) -> tuple[float, str]:
+    def bound(self, nbytes: float, mults: float, int8_macs: float = 0.0,
+              logic: float = 0.0) -> tuple[float, str]:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = mults / self.imad_per_s * 1e3
+        ops_ms = max(mults / self.imad_per_s, int8_macs / INT8_MACS_PER_S, logic / self.logic_per_s) * 1e3
         return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -176,13 +200,14 @@ def phase_build():
 
 
 def check_kernel(card: Card, results: dict, name: str, shape, got, want, plain_ms: float, ms: float,
-                 nbytes: float, mults: float, record: bool = True, **extra) -> None:
+                 nbytes: float, mults: float, record: bool = True, int8_macs: float = 0.0,
+                 logic: float = 0.0, **extra) -> None:
     """Emit one kernel's comparison; raise unless it equals its plain version."""
     import torch
 
     equal = bool(torch.equal(got, want))
     err = max_abs_err(got, want) if got.numel() else 0
-    bound_ms, bound_by = card.bound(nbytes, mults)
+    bound_ms, bound_by = card.bound(nbytes, mults, int8_macs, logic)
     emit("kernel", name=name, shape=list(shape), equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, **extra)
     if not equal:
@@ -201,6 +226,29 @@ def _fmul(n: int) -> int:
 ADD_FMULS, DOUBLE_FMULS = 12, 8  # RCB15 Alg. 7 / Alg. 9 as csrc/field32.cuh runs them
 BB_MUL = 4  # BabyBear Montgomery product: lo, hi, m, umulhi(m, p)
 PERM_MULS = BB_MUL * ((8 * 16 * 4) + 13 * (4 + 16))  # Poseidon2: 772 products
+# The fewest 32-bit instructions a function needs at compute capability 9.0,
+# where LOP3 (any boolean function of three inputs) and IADD3 (a sum of
+# three) are one instruction each at the logic rate, a 32-bit rotation is
+# one funnel shift and a 64-bit one two.
+# Keccak-f, per round on the two 32-bit halves of each lane: theta's 5
+# column parities 2 LOP3 each (20), the 5 rotations of a parity by 1 (10),
+# a ^ c[x-1] ^ rot(c[x+1]) one LOP3 per lane (50); rho's 24 rotations (48;
+# no offset is 32); chi's a ^ (~b & c) one LOP3 per lane (50); iota (2):
+# 180 a round, 90 per 64-bit lane word.
+KECCAK_PERM_OPS = 24 * (2 * 2 * 5 + 2 * 5 + 2 * 25 + 2 * 24 + 2 * 25 + 2)
+# SHA-256 per block: 64 rounds of 14 (Σ1 and Σ0 each 3 rotations and a
+# LOP3, Ch and Maj a LOP3 each, t1 = h + Σ1 + Ch + K + W two IADD3,
+# e = d + t1 and a = t1 + Σ0 + Maj one each), 48 schedule words of 10 (σ0
+# and σ1 each 3 shifts and a LOP3, their sum with w16 and w7 two IADD3),
+# and the 8 adds of the chaining value
+SHA_BLOCK_OPS = 64 * 14 + 48 * 10 + 8
+# B6's mod-p recombination of one output of one pass, at its fewest: the
+# seven diagonal sums S_s + 2^23 (each < 2^24) add, shifted by 8s, into one
+# integer V < 2^73 by shifts and adds alone; V's three 32-bit words v_i fold
+# with the constants 2^(32(i+1)) mod p (three 32 x 32 -> 64-bit products of
+# two multiplies each) into T < 2^65, and one Montgomery step (two
+# multiplies) gives T / 2^32 = V mod p
+MXU_RECOMB_MULS = 3 * 2 + 2
 
 
 def phase_kernels(card: Card, setup32) -> dict:
@@ -290,7 +338,7 @@ def phase_stark_kernels(card: Card) -> dict:
     rng = np.random.default_rng(SEED + 2)
 
     def mont(shape) -> torch.Tensor:
-        return convert.bb_from_numpy(bb.np_to_mont(rng.integers(0, bb.P, shape, dtype=np.uint32)), "cuda")
+        return convert.words_from_numpy(bb.np_to_mont(rng.integers(0, bb.P, shape, dtype=np.uint32)), "cuda")
 
     results = {}
     cases = [  # (name, shape, record): the keccak chunk's shapes are recorded
@@ -334,6 +382,121 @@ def phase_stark_kernels(card: Card) -> dict:
     return results
 
 
+def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
+    """B3, B6, Keccak-256 and SHA-256 through the port's ops entry points
+    (``ec_cuda.ec_double``, ``ntt_mxu.ntt_mxu``, ``keccak.keccak_f1600_batch``
+    and ``keccak256_batch``, ``sha256.sha256_batch``), counts reset just
+    before and read just after; then each kernel against its plain version
+    and the hashes against the host's.  Returns (results, launches)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from raiko_tpu_torch import convert, kernels
+    from raiko_tpu_torch.fields import babybear as bb
+    from raiko_tpu_torch.kzg import curve
+    from raiko_tpu_torch.ops import ec_cuda, keccak, keccak_cuda, ntt, ntt_cuda, ntt_mxu, sha256, sha256_cuda
+    from raiko_tpu_torch.stark.prover import BLOWUP_LOG
+    from raiko_tpu_torch.utils import native
+
+    rng = np.random.default_rng(SEED + 4)
+    pick = lambda k: setup32[torch.as_tensor(rng.integers(0, setup32.shape[0], k), device="cuda")]
+
+    # B3 at B1's width: affine points, points with Z != 1, identities
+    m = 131_072
+    pts = pick(m)
+    pts[m // 2 :] = ec_cuda.ec_add(pick(m // 2), pick(m // 2))
+    pts[:64] = convert.pack32(curve.identity((64,), "cuda"))
+    # B6 at the NTT bench's 64 x 2^14, and on the keccak chunk's LDE input:
+    # the coset-scaled, zero-padded coefficients that phase stark's B5 takes
+    ntt64 = convert.words_from_numpy(bb.np_to_mont(rng.integers(0, bb.P, (64, 1 << 14), dtype=np.uint32)), "cuda")
+    trace = rng.integers(0, bb.P, (KECCAK_ROWS, KECCAK_COLS), dtype=np.uint32)
+    coeffs = ntt.interpolate(bb.to_mont(convert.words_from_numpy(trace, "cuda").T.contiguous()))
+    lde_in = ntt.coset_pad(coeffs, BLOWUP_LOG, bb.GENERATOR)
+    # Keccak: 8,192 states; 8,192 MPT-node-sized messages (32-532 bytes, one
+    # to four rate blocks).  SHA-256: 8,192 48-byte commitments (to their
+    # versioned hashes) and 1,024 messages of 0-299 bytes (one to five blocks)
+    kstate = convert.words_from_numpy(rng.integers(0, 1 << 32, (8192, 25, 2), dtype=np.uint32), "cuda")
+    nodes = [rng.bytes(int(n)) for n in rng.integers(32, 533, 8192)]
+    commitments = [rng.bytes(48) for _ in range(8192)]
+    mixed = [rng.bytes(int(n)) for n in rng.integers(0, 300, 1024)]
+
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.reset()
+    doubled = ec_cuda.ec_double(pts)
+    mxu64 = ntt_mxu.ntt_mxu(ntt64)
+    mxu_lde = ntt_mxu.ntt_mxu(lde_in)
+    permuted = keccak.keccak_f1600_batch(kstate)
+    node_digests = keccak.keccak256_batch(nodes, "cuda")
+    versioned = sha256.sha256_batch(commitments, "cuda")
+    mixed_digests = sha256.sha256_batch(mixed, "cuda")
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES.snapshot()
+    emit("ops", launches=launches)
+    missing = [k for k in OPS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the ops path: {missing}")
+
+    results = {}
+    want, plain_ms = once_ms(lambda: ec_cuda.ec_double_plain(pts))
+    ms = cuda_ms(lambda: ec_cuda.ec_double(pts), 20)
+    check_kernel(card, results, "ec_double", [m, 3, 12], doubled, want, plain_ms, ms,
+                 nbytes=2 * m * 144, mults=m * DOUBLE_FMULS * _fmul(12))
+
+    for x, got, record in ((ntt64, mxu64, True), (lde_in, mxu_lde, False)):
+        bsz, n = x.shape
+        log_n = n.bit_length() - 1
+        r, c = 1 << (log_n // 2), 1 << (log_n - log_n // 2)
+        want, plain_ms = once_ms(lambda: ntt_mxu.ntt_mxu_plain(x))
+        ms = cuda_ms(lambda: ntt_mxu.ntt_mxu(x), 10)
+        b5 = ntt_cuda.ntt(x)
+        b5_ms = cuda_ms(lambda: ntt_cuda.ntt(x), 10)
+        ntt_bound_ms, ntt_bound_by = card.bound(*_ntt_work(bsz, log_n, False))
+        equal_b5 = bool(torch.equal(got, b5))
+        # own work: the int8 MACs of both passes, each element in and out
+        # once, per output and pass one recombination, and one cross twiddle
+        check_kernel(card, results, "ntt_mxu", [bsz, n], got, want, plain_ms, ms, nbytes=8 * bsz * n,
+                     mults=bsz * n * (2 * MXU_RECOMB_MULS + BB_MUL), int8_macs=16 * n * (r + c) * bsz,
+                     record=record, equal_b5=equal_b5, b5_ms=b5_ms, ntt_bound_ms=ntt_bound_ms,
+                     ntt_bound_by=ntt_bound_by)
+        if not equal_b5:
+            raise AssertionError(f"ntt_mxu at {[bsz, n]} differs from B5's ntt")
+
+    want, plain_ms = once_ms(lambda: keccak.keccak_f1600_plain(kstate))
+    ms = cuda_ms(lambda: keccak.keccak_f1600_batch(kstate), 20)
+    check_kernel(card, results, "keccak_f1600", [8192, 25, 2], permuted, want, plain_ms, ms,
+                 nbytes=2 * 8192 * 200, mults=0, logic=8192 * KECCAK_PERM_OPS)
+
+    def hash_case(name, msgs, digests, host, pack, blocks_fn, plain_fn, block_bytes, block_ops, record):
+        """The kernel behind a batch hash on the batch's own blocks, against
+        the plain version; the entry point's digests against the host's."""
+        words, counts = pack(msgs)
+        w = convert.words_from_numpy(words, "cuda")
+        cnt = torch.as_tensor(counts, device="cuda")
+        got = blocks_fn(w, cnt)
+        want, plain_ms = once_ms(lambda: plain_fn(w, cnt))
+        ms = cuda_ms(lambda: blocks_fn(w, cnt), 20)
+        host_equal = digests == [host(msg) for msg in msgs]
+        nblocks = int(counts.sum())
+        check_kernel(card, results, name, [len(msgs), words.shape[1]], got, want, plain_ms, ms,
+                     nbytes=nblocks * block_bytes + len(msgs) * (4 + 32), mults=0,
+                     logic=nblocks * block_ops, record=record, blocks=nblocks, host_equal=host_equal)
+        if not host_equal:
+            raise AssertionError(f"{name}: the card's digests differ from the host's")
+
+    hash_case("keccak_f1600", nodes, node_digests, native.keccak256, keccak.pack_ragged,
+              keccak_cuda.keccak256_blocks, keccak.keccak256_blocks_plain, keccak.RATE, KECCAK_PERM_OPS + 34,
+              record=False)
+    sha_blocks = lambda w, cnt: sha256_cuda.sha256_compress(None, w, cnt)
+    sha_plain = lambda w, cnt: sha256.sha256_blocks_plain(None, w, cnt)
+    sha_host = lambda msg: hashlib.sha256(msg).digest()
+    for msgs, digests, record in ((commitments, versioned, True), (mixed, mixed_digests, False)):
+        hash_case("sha256_compress", msgs, digests, sha_host, sha256.pack_ragged, sha_blocks, sha_plain,
+                  64, SHA_BLOCK_OPS, record=record)
+    return results, {k: launches[k] for k in OPS}
+
+
 def phase_stark() -> dict:
     """The STARK trace commitment at the keccak chunk's shape, through the
     port's entry point; returns the launches of that run."""
@@ -359,12 +522,12 @@ def phase_stark() -> dict:
     same = convert.bb_to_numpy(root).tolist() == convert.bb_to_numpy(plain_root).tolist()
 
     # by stage, CUDA events, on the card
-    tm = bb.to_mont(convert.bb_from_numpy(trace, "cuda").T.contiguous())
+    tm = bb.to_mont(convert.words_from_numpy(trace, "cuda").T.contiguous())
     coeffs = ntt.interpolate(tm)
     lde = ntt.lde_from_coeffs(coeffs, BLOWUP_LOG, bb.GENERATOR)
     leaves = p2.hash_rows(lde.T)
     stages = {
-        "upload_to_mont_ms": cuda_ms(lambda: bb.to_mont(convert.bb_from_numpy(trace, "cuda").T.contiguous()),
+        "upload_to_mont_ms": cuda_ms(lambda: bb.to_mont(convert.words_from_numpy(trace, "cuda").T.contiguous()),
                                      5),
         "interpolate_ms": cuda_ms(lambda: ntt.interpolate(tm), 5),
         "lde_ms": cuda_ms(lambda: ntt.lde_from_coeffs(coeffs, BLOWUP_LOG, bb.GENERATOR), 5),
@@ -682,6 +845,8 @@ def main(argv=None) -> int:
     setup32 = convert.pack32(convert.setup_points(torch.device("cuda")))
     kres = phase_kernels(card, setup32)
     kres.update(phase_stark_kernels(card))
+    ops_results, ops_launches = phase_ops(card, setup32)
+    kres.update(ops_results)
     phase_kzg()
     per_request, launches, served = phase_serve("cuda", n_blocks=3, n_txs=100)
     emit("serve", requests=len(per_request), seconds_per_request=per_request, launches=launches)
@@ -693,6 +858,7 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the commitment path: {missing}")
     launches.update({k: stark_launches[k] for k in STARK})
+    launches.update(ops_launches)
     check_requests(served)
     loaded = refused_modules()
     emit("refused", loaded=loaded, seconds=time.perf_counter() - t_start)

@@ -1,8 +1,10 @@
-// BLS12-381 G1 kernels for Hopper (sm_90a): B1 batched complete addition and
-// B2 the weighted Horner fold of the Pippenger MSM.
+// BLS12-381 G1 kernels for Hopper (sm_90a): B1 batched complete addition,
+// B2 the weighted Horner fold of the Pippenger MSM and B3 batched complete
+// doubling.
 //
-// Replaces raiko_tpu/ops/ec_pallas.py: ec_add (kernel _add_kernel) and
-// ec_weighted_fold (kernel _fold_kernel).
+// Replaces raiko_tpu/ops/ec_pallas.py: ec_add (kernel _add_kernel),
+// ec_weighted_fold (kernel _fold_kernel) and ec_double (kernel
+// _double_kernel).
 //
 // Layout: a point is (3, 12) little-endian 32-bit limbs, Montgomery form
 // with R = 2^384, contiguous (M, 3, 12); the wrappers in ops/ec_cuda.py
@@ -27,6 +29,9 @@
 //   and the card is nearly idle; it is bound by the latency of dependent
 //   multiplies (19.6 ms per fold on the H100 above).  Splitting the chain
 //   across threads is later work.
+// * B3 is B1's shape with RCB15 Alg. 9: 8 CIOS products per point against
+//   288 bytes moved, so integer multiplies bound it too.  One thread per
+//   point, point_double of field32.cuh (the doubling B2 runs).
 // The Pallas kernels' TPU layout (limbs on sublanes, six products stacked
 // along lanes, deferred Kogge-Stone carries) does not carry over: a thread's
 // registers hold whole field elements and carries ripple through 64-bit
@@ -72,6 +77,16 @@ __global__ void __launch_bounds__(128) ec_add_kernel(const uint32_t* __restrict_
   store_point(out + i * 36, a);
 }
 
+__global__ void __launch_bounds__(128) ec_double_kernel(const uint32_t* __restrict__ p,
+                                                        uint32_t* __restrict__ out, long long m) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  G1 a;
+  load_point(a, p + i * 36);
+  point_double(a, a);
+  store_point(out + i * 36, a);
+}
+
 // out[b] = sum_j 2^j v[b, j] as acc = v[J-1]; acc = 2 acc + v[j] for j = J-2..0.
 __global__ void __launch_bounds__(64) weighted_fold_kernel(const uint32_t* __restrict__ v,
                                                            uint32_t* __restrict__ out,
@@ -98,6 +113,16 @@ extern "C" int raiko_bls12_381_ec_add(const void* p, const void* q, void* out, l
     const long long blocks = (m + threads - 1) / threads;
     raiko::ec_add_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, m);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int raiko_bls12_381_ec_double(const void* p, void* out, long long m, void* stream) {
+  if (m > 0) {
+    const int threads = 128;
+    const long long blocks = (m + threads - 1) / threads;
+    raiko::ec_double_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (uint32_t*)out, m);
   }
   return (int)cudaGetLastError();
 }

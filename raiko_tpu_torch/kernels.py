@@ -31,7 +31,8 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("bls12_381_g1.cu", "secp256k1_ladder.cu", "babybear_ntt.cu", "babybear_poseidon2.cu")
+SOURCES = ("bls12_381_g1.cu", "secp256k1_ladder.cu", "babybear_ntt.cu", "babybear_poseidon2.cu",
+           "babybear_ntt_mxu.cu", "keccak_f1600.cu", "sha256.cu")
 HEADERS = ("field32.cuh", "babybear.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +47,10 @@ _ENTRIES = {
     "raiko_poseidon2_hash_rows": 3 * [ctypes.c_void_p] + [ctypes.c_longlong, ctypes.c_int]
     + 2 * [ctypes.c_longlong] + [ctypes.c_uint],
     "raiko_poseidon2_compress": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
+    "raiko_bls12_381_ec_double": 2 * [ctypes.c_void_p] + [ctypes.c_longlong],
+    "raiko_babybear_ntt_mxu": 6 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
+    "raiko_keccak_f1600": 5 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
+    "raiko_sha256_compress": 5 * [ctypes.c_void_p] + [ctypes.c_longlong, ctypes.c_int],
 }
 
 
@@ -156,7 +161,8 @@ def library() -> ctypes.CDLL:
 
 def launch(entry: str, counter: str, *args) -> None:
     """Call C entry `entry` on torch's current stream and count the launch
-    under `counter`.  Tensor arguments pass their data pointers."""
+    under `counter`.  Tensor arguments pass their data pointers, None a
+    null pointer."""
     fn = getattr(library(), entry)
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = fn(*c_args, torch.cuda.current_stream().cuda_stream)

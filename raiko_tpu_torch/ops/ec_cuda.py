@@ -1,10 +1,11 @@
-"""BLS12-381 G1 kernels on the card: B1 ``ec_add`` and B2 ``ec_weighted_fold``.
+"""BLS12-381 G1 kernels on the card: B1 ``ec_add``, B2 ``ec_weighted_fold``
+and B3 ``ec_double``.
 
 Counterpart of raiko_tpu/ops/ec_pallas.py; the CUDA source is
 csrc/bls12_381_g1.cu (its header note says what bounds each kernel on the
 H100 and how the design answers it).
 
-Both wrappers take points in the kernels' layout, (..., 3, 12) int32 tensors
+The wrappers take points in the kernels' layout, (..., 3, 12) int32 tensors
 holding 32-bit Montgomery limbs (convert.pack32 of the public (..., 3, 24)
 layout).  On a CUDA tensor a wrapper launches its kernel or raises; only a
 CPU tensor goes to the plain version beside it, which unpacks, runs the
@@ -49,6 +50,28 @@ def ec_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(p)
     if p.shape[0]:
         kernels.launch("raiko_bls12_381_ec_add", "ec_add", p, q, out, p.shape[0])
+    return out
+
+
+def ec_double_plain(p: torch.Tensor) -> torch.Tensor:
+    """Plain torch B3: complete doubling of (M, 3, 12) packed points."""
+    outs = [convert.pack32(curve.double(convert.unpack32(p[i : i + _PLAIN_ROWS])))
+            for i in range(0, p.shape[0], _PLAIN_ROWS)]
+    return torch.cat(outs) if outs else p.clone()
+
+
+def ec_double(p: torch.Tensor) -> torch.Tensor:
+    """Batched complete G1 doubling, bit-exact with kzg/curve.py:double.
+
+    p: (M, 3, 12) int32 packed Montgomery projective -> (M, 3, 12)."""
+    if p.dim() != 3 or p.shape[1:] != (3, NLIMBS32) or p.dtype != torch.int32:
+        raise ValueError(f"ec_double: expected an (M, 3, 12) int32 tensor, got {p.dtype} {tuple(p.shape)}")
+    if p.device.type == "cpu":
+        return ec_double_plain(p)
+    kernels.check(p, "ec_double p", torch.int32, (3, NLIMBS32))
+    out = torch.empty_like(p)
+    if p.shape[0]:
+        kernels.launch("raiko_bls12_381_ec_double", "ec_double", p, out, p.shape[0])
     return out
 
 

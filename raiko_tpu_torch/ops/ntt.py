@@ -116,18 +116,21 @@ def _coset_powers(n: int, shift: int) -> np.ndarray:
     return bb.np_to_mont(bb.np_powers(shift, n))
 
 
+def coset_pad(coeffs: torch.Tensor, blowup_log: int, shift: int | None = None) -> torch.Tensor:
+    """Coefficients (..., N) scaled by shift^i and zero-padded to
+    N·2^blowup_log: the input of the LDE's forward NTT."""
+    n = coeffs.shape[-1]
+    if shift is None:
+        shift = bb.GENERATOR
+    powers = torch.as_tensor(_coset_powers(n, shift).astype(np.int64), device=coeffs.device)
+    return torch.nn.functional.pad(bb.mont_mul(coeffs, powers), (0, (n << blowup_log) - n))
+
+
 def lde_from_coeffs(coeffs: torch.Tensor, blowup_log: int, shift: int | None = None) -> torch.Tensor:
     """Evaluate coefficient-form polynomials (..., N) over the shifted coset
     of size N·2^blowup_log.  Output in bit-reversed order, Montgomery form:
     coefficients scaled by shift^i, zero-padded, forward NTT."""
-    n = coeffs.shape[-1]
-    m = n << blowup_log
-    if shift is None:
-        shift = bb.GENERATOR
-    powers = torch.as_tensor(_coset_powers(n, shift).astype(np.int64), device=coeffs.device)
-    scaled = bb.mont_mul(coeffs, powers)
-    padded = torch.nn.functional.pad(scaled, (0, m - n))
-    return ntt(padded)
+    return ntt(coset_pad(coeffs, blowup_log, shift))
 
 
 @functools.lru_cache(maxsize=None)

@@ -25,7 +25,7 @@ def commit_step(trace, device) -> torch.Tensor:
     tensor) -> the (8,) Merkle root on `device`, int32 Montgomery form."""
     dev = device_mod.get(device)
     if isinstance(trace, np.ndarray):
-        trace = convert.bb_from_numpy(trace, dev)
+        trace = convert.words_from_numpy(trace, dev)
     tm = bb.to_mont(trace.to(dev).T.contiguous())
     _, _, levels = commit_cols(tm, bb.GENERATOR)
     return levels[-1][0]

@@ -48,7 +48,7 @@ def fixed_commit_root(fixed: np.ndarray, shift: int, device) -> list[int]:
     key = (hashlib.sha256(fixed.tobytes()).digest(), fixed.shape, shift)
     r = _FIXED_ROOT_CACHE.get(key)
     if r is None:
-        fixed_m = bb.to_mont(convert.bb_from_numpy(fixed, device))
+        fixed_m = bb.to_mont(convert.words_from_numpy(fixed, device))
         _, _, levels = commit_cols(fixed_m, shift)
         r = convert.bb_to_numpy(bb.from_mont(merkle.root(levels))).tolist()
         _FIXED_ROOT_CACHE[key] = r

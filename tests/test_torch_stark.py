@@ -66,7 +66,7 @@ def _mont(seed: int, shape) -> np.ndarray:
 
 
 def _t(arr: np.ndarray) -> torch.Tensor:
-    return convert.bb_from_numpy(arr, "cpu")
+    return convert.words_from_numpy(arr, "cpu")
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
