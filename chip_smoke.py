@@ -15,8 +15,12 @@ prints one JSON line; any failure raises and exits non-zero.
 3. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit (tolerance 0: field arithmetic is exact), at its path's shapes,
    with both times and the least time the card could take (bound):
-   B1 ec_add at M = 131,072, B2 ec_weighted_fold at B = 1 and 4 (J = 256),
-   B4 shamir_ladder at B = 128 real signatures; B5 ntt at 4,160 x 4,096
+   B1 ec_add at M = 131,072; B2 ec_weighted_fold at J = 256, B = 1 and 4
+   (timed, with the microseconds per Horner step), and at J = 1, 2 and
+   B = 33, with identities and repeated points; B4 shamir_ladder at
+   B = 128 and 101 real signatures (timed, with the microseconds per ladder
+   iteration), 1, 33 and 257, with lanes whose indices are all 0, 1 or 2;
+   B5 ntt at 4,160 x 4,096
    and intt at 4,160 x 1,024 (the keccak chunk's LDE and interpolation),
    both at 64 x 2^14 and 1 x 2^20, with the round trip;
    poseidon2_hash_rows at 4,096 rows x 4,160 columns (the LDE's transpose)
@@ -194,12 +198,12 @@ def phase_build():
     t0 = time.perf_counter()
     kernels.library()
     with open(kernels.BUILD_INFO["log"]) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+        ptxas = [ln.strip() for ln in f if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=kernels.BUILD_INFO["seconds"],
          ptxas=ptxas)
 
 
-def check_kernel(card: Card, results: dict, name: str, shape, got, want, plain_ms: float, ms: float,
+def check_kernel(card: Card, results: dict, name: str, shape, got, want, plain_ms: float, ms: float | None,
                  nbytes: float, mults: float, record: bool = True, int8_macs: float = 0.0,
                  logic: float = 0.0, **extra) -> None:
     """Emit one kernel's comparison; raise unless it equals its plain version."""
@@ -280,36 +284,55 @@ def phase_kernels(card: Card, setup32) -> dict:
     check_kernel(card, results, "ec_add", [m, 3, 12], got, want, plain_ms, ms,
                  nbytes=3 * m * 144, mults=m * ADD_FMULS * _fmul(12))
 
-    # B2 at the MSM's J = 256, batch 1 (one blob) and 4 (msm_multi)
-    for bsz in (1, 4):
-        v = pick(bsz * 256).reshape(bsz, 256, 3, 12).contiguous()
-        got = ec_cuda.ec_weighted_fold(v)
-        want, plain_ms = once_ms(lambda: ec_cuda.ec_weighted_fold_plain(v))
-        ms = cuda_ms(lambda: ec_cuda.ec_weighted_fold(v), 5)
-        check_kernel(card, results, "ec_weighted_fold", [bsz, 256, 3, 12], got, want, plain_ms, ms,
-                     nbytes=bsz * 257 * 144, mults=bsz * 255 * (ADD_FMULS + DOUBLE_FMULS) * _fmul(12),
-                     record=bsz == 1)
+    # B2: the MSM's J = 256 at batch 1 (one blob; recorded) and 4
+    # (msm_multi), both timed, and the edge shapes J = 1 (the input
+    # unchanged) and 2, and batch 33 (more blocks than a wave of one SM);
+    # every input holds identities (as empty buckets give) and a point twice
+    ident = convert.pack32(curve.identity((), "cuda"))
+    for j in (256, 1, 2):
+        for bsz in (1, 4, 33):
+            v = pick(bsz * j).reshape(bsz, j, 3, 12).contiguous()
+            v[bsz // 2, 0] = ident
+            if j >= 2:
+                v[0, j - 1] = v[0, j - 2]
+                v[bsz - 1, j // 2] = ident
+            got = ec_cuda.ec_weighted_fold(v)
+            want, plain_ms = once_ms(lambda: ec_cuda.ec_weighted_fold_plain(v))
+            timed = j == 256 and bsz in (1, 4)
+            ms = cuda_ms(lambda: ec_cuda.ec_weighted_fold(v), 10) if timed else None
+            extra = dict(product_layers=4 * (j - 1), us_per_step=ms * 1e3 / (j - 1)) if timed else {}
+            check_kernel(card, results, "ec_weighted_fold", [bsz, j, 3, 12], got, want, plain_ms, ms,
+                         nbytes=bsz * (j + 1) * 144, mults=bsz * (j - 1) * (ADD_FMULS + DOUBLE_FMULS) * _fmul(12),
+                         record=j == 256 and bsz == 1, **extra)
 
-    # B4 at 128 real signatures
+    # B4: 128 real signatures (recorded; public keys against the host's) and
+    # 101, the served block's lane count, both timed; 1, 33 and 257 lanes,
+    # the last two with lanes whose indices are all 0, all 1 and all 2
     items = []
-    for i in range(128):
+    for i in range(257):
         msg = rng.bytes(32)
         r, s, rec = host.sign(msg, int.from_bytes(rng.bytes(31), "big") + 1)
         items.append((msg, r, s, rec))
     _, base_np, idx_np = secp.ladder_inputs(items)
-    base = convert.pack32(torch.as_tensor(base_np, device="cuda"))
-    idx = torch.as_tensor(idx_np, device="cuda")
-    got = secp_cuda.shamir_ladder(base, idx)
-    want, plain_ms = once_ms(lambda: secp_cuda.shamir_ladder_plain(base, idx))
-    ms = cuda_ms(lambda: secp_cuda.shamir_ladder(base, idx), 5)
-    pubs = [secp.to_affine(pt) for pt in convert.unpack32(got).cpu().numpy()]
-    ok_pubs = pubs == [host.recover_pubkey(*it) for it in items]
-    if not ok_pubs:
-        raise AssertionError("B4 shamir_ladder's public keys differ from the host's")
-    check_kernel(card, results, "shamir_ladder", [128, 2, 3, 8], got, want, plain_ms, ms,
-                 nbytes=128 * (192 + 1024 + 96),
-                 mults=128 * (ADD_FMULS + 256 * (ADD_FMULS + DOUBLE_FMULS)) * _fmul(8),
-                 pubkeys_match_host=ok_pubs)
+    for bsz in (128, 101, 1, 33, 257):
+        base = convert.pack32(torch.as_tensor(base_np[:bsz], device="cuda"))
+        idx = torch.as_tensor(np.ascontiguousarray(idx_np[:, :bsz]), device="cuda")
+        if bsz in (33, 257):
+            idx[:, :3] = torch.arange(3, dtype=torch.int32, device="cuda")
+        got = secp_cuda.shamir_ladder(base, idx)
+        want, plain_ms = once_ms(lambda: secp_cuda.shamir_ladder_plain(base, idx))
+        timed = bsz in (128, 101)
+        ms = cuda_ms(lambda: secp_cuda.shamir_ladder(base, idx), 10) if timed else None
+        extra = dict(product_layers=2 + 4 * 256, us_per_step=ms * 1e3 / 256) if timed else {}
+        if bsz == 128:
+            pubs = [secp.to_affine(pt) for pt in convert.unpack32(got).cpu().numpy()]
+            extra["pubkeys_match_host"] = pubs == [host.recover_pubkey(*it) for it in items[:128]]
+            if not extra["pubkeys_match_host"]:
+                raise AssertionError("B4 shamir_ladder's public keys differ from the host's")
+        check_kernel(card, results, "shamir_ladder", [bsz, 2, 3, 8], got, want, plain_ms, ms,
+                     nbytes=bsz * (192 + 1024 + 96),
+                     mults=bsz * (ADD_FMULS + 256 * (ADD_FMULS + DOUBLE_FMULS)) * _fmul(8),
+                     record=bsz == 128, **extra)
     return results
 
 

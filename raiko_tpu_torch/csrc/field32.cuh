@@ -1,6 +1,7 @@
 // Montgomery field arithmetic and complete short-Weierstrass (a = 0) point
-// formulas over 32-bit limbs, shared by the BLS12-381 G1 kernels and the
-// secp256k1 ladder.
+// formulas over 32-bit limbs, one field element per thread: the batched
+// BLS12-381 G1 kernels B1 and B3.  The serial chains B2 and B4 run the same
+// operations spread over a warp (field32_coop.cuh).
 //
 // A field element is N little-endian 32-bit limbs held in registers.  The
 // Montgomery radix is R = 2^(32N), which equals the public layout's
@@ -11,7 +12,6 @@
 //   static constexpr int N;                 // limbs
 //   static constexpr uint32_t NP0;          // -p^-1 mod 2^32
 //   __device__ static uint32_t p(int i);    // limb i of p
-//   __device__ static uint32_t one(int i);  // limb i of R mod p (only for set_identity)
 //   __device__ static void mul_b3(uint32_t (&r)[N], const uint32_t (&a)[N]);
 // where mul_b3 multiplies by b3 = 3b of the curve y^2 = x^3 + b.
 #pragma once
@@ -120,16 +120,6 @@ template <class Fd>
 struct Point {
   uint32_t x[Fd::N], y[Fd::N], z[Fd::N];
 };
-
-template <class Fd>
-__device__ __forceinline__ void set_identity(Point<Fd>& p) {
-#pragma unroll
-  for (int j = 0; j < Fd::N; ++j) {
-    p.x[j] = 0;
-    p.y[j] = Fd::one(j);
-    p.z[j] = 0;
-  }
-}
 
 // (x, y, z) = P[i] from a contiguous (M, 3, N) array of 32-bit limbs.
 template <class Fd>

@@ -87,7 +87,7 @@ def ec_weighted_fold_plain(vals: torch.Tensor) -> torch.Tensor:
 def ec_weighted_fold(vals: torch.Tensor) -> torch.Tensor:
     """Σ_j 2^j · vals[:, j] for vals (B, J, 3, 12) packed Montgomery
     projective -> (B, 3, 12): the Pippenger bucket recombination, one
-    thread per batch entry."""
+    warp per batch entry."""
     if vals.dim() != 4 or vals.shape[2:] != (3, NLIMBS32) or vals.shape[1] < 1:
         raise ValueError(f"ec_weighted_fold: expected (B, J >= 1, 3, 12), got {vals.shape}")
     if vals.device.type == "cpu":

@@ -131,3 +131,24 @@ def test_g1_kernels_match_plain_on_card(cuda_device):
     v = p[:256].reshape(1, 256, 3, 12).contiguous()
     got = ec_cuda.ec_weighted_fold(v.to(cuda_device))
     assert torch.equal(got.cpu(), ec_cuda.ec_weighted_fold_plain(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j", [1, 2, 256])
+@pytest.mark.parametrize("bsz", [1, 4, 33])
+def test_weighted_fold_edges_match_plain_on_card(cuda_device, setup_points, j, bsz):
+    # B2 spreads each entry's chain over a warp: J = 1 is the input
+    # unchanged; identities (empty buckets), repeated points and points
+    # with Z != 1 among the inputs; batch 33 runs more blocks than SMs hold
+    # in one wave of one warp each
+    ident = convert.pack32(tcurve.identity((1,)))
+    pool = torch.cat([convert.pack32(setup_points[:512]), convert.pack32(torch.as_tensor(_projective(7, (32,)))),
+                      ident])
+    rng = np.random.default_rng(100 * j + bsz)
+    v = pool[torch.as_tensor(rng.integers(0, pool.shape[0], bsz * j))].reshape(bsz, j, 3, 12).contiguous()
+    v[bsz // 2, 0] = ident[0]
+    if j >= 2:
+        v[0, j - 1] = v[0, j - 2]
+        v[bsz - 1, j // 2] = ident[0]
+    got = ec_cuda.ec_weighted_fold(v.to(cuda_device))
+    assert torch.equal(got.cpu(), ec_cuda.ec_weighted_fold_plain(v))

@@ -108,3 +108,18 @@ def test_shamir_ladder_matches_plain_on_card(cuda_device):
     idx = torch.as_tensor(idx_np)
     got = secp_cuda.shamir_ladder(base.to(cuda_device), idx.to(cuda_device))
     assert torch.equal(got.cpu(), secp_cuda.shamir_ladder_plain(base, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [1, 33, 101, 257])
+def test_shamir_ladder_edges_match_plain_on_card(cuda_device, bsz):
+    # B4 runs one warp per signature; batches that fill no round number of
+    # anything, and lanes whose indices are all 0 (the identity throughout),
+    # all 1 and all 2
+    _, base_np, idx_np = secp.ladder_inputs(_items(3, bsz))
+    base = convert.pack32(torch.as_tensor(base_np))
+    idx = torch.as_tensor(idx_np)
+    if bsz >= 3:
+        idx[:, :3] = torch.arange(3, dtype=torch.int32)
+    got = secp_cuda.shamir_ladder(base.to(cuda_device), idx.to(cuda_device))
+    assert torch.equal(got.cpu(), secp_cuda.shamir_ladder_plain(base, idx))
