@@ -15,7 +15,10 @@ prints one JSON line; any failure raises and exits non-zero.
 3. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit (tolerance 0: field arithmetic is exact), at its path's shapes,
    with both times and the least time the card could take (bound):
-   B1 ec_add at M = 131,072; B2 ec_weighted_fold at J = 256, B = 1 and 4
+   B1 ec_add at M = 131,072 (recorded) and each of its two layouts at the
+   served MSM's widths 256 to 131,072 (timed as CUDA graphs of launches)
+   and at M = 1, 5, 33, 257 and 16,385, with P + P, P + (-P), P + O, O + Q
+   and O + O among the pairs; B2 ec_weighted_fold at J = 256, B = 1 and 4
    (timed, with the microseconds per Horner step), and at J = 1, 2 and
    B = 33, with identities and repeated points; B4 shamir_ladder at
    B = 128 and 101 real signatures (timed, with the microseconds per ladder
@@ -23,8 +26,10 @@ prints one JSON line; any failure raises and exits non-zero.
    B5 ntt at 4,160 x 4,096
    and intt at 4,160 x 1,024 (the keccak chunk's LDE and interpolation),
    both at 64 x 2^14 and 1 x 2^20, with the round trip;
-   poseidon2_hash_rows at 4,096 rows x 4,160 columns (the LDE's transpose)
-   and poseidon2_compress at 2,048 pairs;
+   poseidon2_hash_rows at 4,096 rows x 4,160 columns (the LDE's transpose,
+   recorded) and the flagship's 1,024 x 48, and at 1, 3, 33 and 4,101 rows
+   of widths 1, 7, 8, 9, 48 and 200, contiguous and transposed;
+   poseidon2_compress at 2,048 pairs;
 4. ops: the ops entry points that reach B3, B6 and the Keccak and SHA-256
    kernels, counts reset just before and all four positive after: B3
    ec_double at M = 131,072 (affine points, Z != 1, identities), B6
@@ -56,7 +61,8 @@ The last two lines are the kernels' summary and the device line.
 ``--profile DIR`` runs phases 1-2, then times the stages of one dense blob
 commitment, and puts five commitments and each of three served-path
 requests (through the port's orchestrator) under torch.profiler: device
-time against wall time, launches, the top kernels.  The profiler's tables
+time against wall time, launches, the top kernels and the device time of
+each of the port's own kernels.  The profiler's tables
 go to DIR/profile_*.txt.
 """
 
@@ -93,6 +99,9 @@ INT8_MACS_PER_S = 1979e12 / 2  # H100 SXM dense int8 tensor cores: 1,979 TOP/s, 
 FLAGSHIP_ROOT = [1103079180, 844803899, 311541641, 1509639592,
                  1993886486, 1956685620, 1597694602, 1842386190]
 KECCAK_ROWS, KECCAK_COLS = 1024, 4160  # provers/tpu_stark.py:323, stark/airs/keccak_air.py:43-45
+# B1's launch widths in a served blob MSM: the bucket sums' tree levels run
+# about 63,000 down to 80 pairs, the combine 16,384 down to 256
+B1_WIDTHS = (256, 1024, 4096, 16384, 65536, 131072)
 SOURCES = {
     "ec_add": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:244"),
     "ec_weighted_fold": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:302"),
@@ -132,6 +141,36 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() on the card when `reps` calls replay as one
+    CUDA graph (best of three replays): back-to-back launches without the
+    host's cost per call, for kernels shorter than that cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
 
 
 def once_ms(fn):
@@ -221,6 +260,41 @@ def check_kernel(card: Card, results: dict, name: str, shape, got, want, plain_m
                          "bound_by": bound_by}
 
 
+def check_edges(name: str, cases) -> None:
+    """Emit one line for a kernel's edge shapes, (label, got, want) each;
+    raise unless every one equals its plain version."""
+    import torch
+
+    bad = [label for label, got, want in cases if not torch.equal(got, want)]
+    err = max((max_abs_err(got, want) for _, got, want in cases if got.numel()), default=0)
+    emit("kernel_edges", name=name, cases=len(cases), equal=not bad, max_abs_err=err, differ=bad)
+    if bad:
+        raise AssertionError(f"{name} differs from its plain version at {bad}")
+
+
+def with_special_sums(p, q, upto: int) -> None:
+    """Make pair i < upto of p + q, by i mod 6: a general sum (0), P + P,
+    P + (-P), P + O, O + Q or O + O (O the identity)."""
+    import torch
+
+    from raiko_tpu_torch import convert
+    from raiko_tpu_torch.fields.limbs import FP
+    from raiko_tpu_torch.kzg import curve
+
+    kind = torch.arange(min(upto, p.shape[0]), device=p.device) % 6
+    at = lambda k: torch.nonzero(kind == k).squeeze(1)
+    inf = convert.pack32(curve.identity((), p.device))
+    q[at(1)] = p[at(1)]
+    if at(2).numel():
+        neg = convert.unpack32(p[at(2)])
+        neg[:, 1] = FP.neg(neg[:, 1])
+        q[at(2)] = convert.pack32(neg)
+    q[at(3)] = inf
+    p[at(4)] = inf
+    p[at(5)] = inf
+    q[at(5)] = inf
+
+
 # 32-bit multiplies of one CIOS product of N-limb Montgomery values:
 # per limb of b, N 64-bit products a_j b_i, one m, N 64-bit products m p_j.
 def _fmul(n: int) -> int:
@@ -268,21 +342,39 @@ def phase_kernels(card: Card, setup32) -> dict:
     pick = lambda k: setup32[torch.as_tensor(rng.integers(0, setup32.shape[0], k), device="cuda")]
     results = {}
 
-    # B1 at the blob MSM's width: p affine (Z = 1), q general projective
+    # B1 at the blob MSM's width (recorded, through ec_add): p affine
+    # (Z = 1), q general projective, with runs of the special sums
     m = 131_072
     p = pick(m)
     q = ec_cuda.ec_add_plain(pick(m), pick(m))
-    inf = convert.pack32(curve.identity((64,), "cuda"))
-    q[:64] = p[:64]  # P + P: doubling through the complete formula
-    q[64:128] = inf  # P + infinity
-    p[128:192] = inf  # infinity + Q
-    p[192:256] = inf  # infinity + infinity
-    q[192:256] = inf
+    with_special_sums(p, q, 384)
     got = ec_cuda.ec_add(p, q)
     want, plain_ms = once_ms(lambda: ec_cuda.ec_add_plain(p, q))
     ms = cuda_ms(lambda: ec_cuda.ec_add(p, q), 20)
-    check_kernel(card, results, "ec_add", [m, 3, 12], got, want, plain_ms, ms,
-                 nbytes=3 * m * 144, mults=m * ADD_FMULS * _fmul(12))
+    add_work = lambda k: dict(nbytes=3 * k * 144, mults=k * ADD_FMULS * _fmul(12))
+    check_kernel(card, results, "ec_add", [m, 3, 12], got, want, plain_ms, ms, lanes=ec_cuda.add_lanes(m),
+                 **add_work(m))
+    # each layout at the widths the served MSM launches (prefixes of the same
+    # pairs), timed as CUDA graphs: below one wave a launch is shorter than
+    # the host's cost per call
+    for k in B1_WIDTHS:
+        pk, qk = p[:k], q[:k]
+        for lanes in ec_cuda.ADD_LANE_CHOICES:
+            got = ec_cuda.ec_add_lanes(pk, qk, lanes)
+            ms = graph_ms(lambda: ec_cuda.ec_add_lanes(pk, qk, lanes), 20 if k <= 16384 else 5)
+            check_kernel(card, results, "ec_add", [k, 3, 12], got, want[:k], None, ms, record=False, lanes=lanes,
+                         taken_by_ec_add=lanes == ec_cuda.add_lanes(k), **add_work(k))
+    # both layouts at widths that leave warps and blocks part-filled, on
+    # points with Z != 1 and every sixth pair one of the special sums
+    cases = []
+    for k in (1, 5, 33, 257, 16_385):
+        pk = ec_cuda.ec_add_plain(pick(k), pick(k))
+        qk = ec_cuda.ec_add_plain(pick(k), pick(k))
+        with_special_sums(pk, qk, k)
+        want_k = ec_cuda.ec_add_plain(pk, qk)
+        cases += [(f"M={k} lanes={lanes}", ec_cuda.ec_add_lanes(pk, qk, lanes), want_k)
+                  for lanes in ec_cuda.ADD_LANE_CHOICES]
+    check_edges("ec_add", cases)
 
     # B2: the MSM's J = 256 at batch 1 (one blob; recorded) and 4
     # (msm_multi), both timed, and the edge shapes J = 1 (the input
@@ -392,9 +484,26 @@ def phase_stark_kernels(card: Card) -> dict:
     want, plain_ms = once_ms(lambda: p2.hash_rows_plain(rows))
     ms = cuda_ms(lambda: poseidon2_cuda.poseidon2_hash_rows(rows), 5)
     nrows, width = rows.shape
+    hash_work = lambda n, w: dict(nbytes=4 * (n * w + n * p2.OUT), mults=n * max(1, -(-w // p2.RATE)) * PERM_MULS)
     check_kernel(card, results, "poseidon2_hash_rows", (nrows, width), got, want, plain_ms, ms,
-                 nbytes=4 * (nrows * width + nrows * p2.OUT),
-                 mults=nrows * -(-width // p2.RATE) * PERM_MULS)
+                 **hash_work(nrows, width))
+    # the flagship's LDE transpose (1,024 x 48), timed; then row counts that
+    # are no multiple of a block's 16 rows, at widths around one rate chunk,
+    # contiguous and transposed
+    rows = mont((48, 1024)).T
+    got = poseidon2_cuda.poseidon2_hash_rows(rows)
+    want, plain_ms = once_ms(lambda: p2.hash_rows_plain(rows))
+    ms = cuda_ms(lambda: poseidon2_cuda.poseidon2_hash_rows(rows), 20)
+    check_kernel(card, results, "poseidon2_hash_rows", (1024, 48), got, want, plain_ms, ms, record=False,
+                 **hash_work(1024, 48))
+    cases = []
+    for nrows in (1, 3, 33, 4101):
+        for width in (1, 7, 8, 9, 48, 200):
+            x = mont((nrows, width))
+            want = p2.hash_rows_plain(x)
+            cases.append((f"{nrows}x{width}", poseidon2_cuda.poseidon2_hash_rows(x), want))
+            cases.append((f"{nrows}x{width} transposed", poseidon2_cuda.poseidon2_hash_rows(x.T.contiguous().T), want))
+    check_edges("poseidon2_hash_rows", cases)
 
     pairs = mont((2048, 2 * p2.OUT))
     got = poseidon2_cuda.poseidon2_compress(pairs)
@@ -788,14 +897,16 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
     os.makedirs(out_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
-    def device_ms(prof) -> tuple[float, dict]:
-        """Total device time of the run, and the four largest kernels."""
+    def device_ms(prof) -> tuple[float, dict, dict]:
+        """Total device time of the run, the four largest kernels, and the
+        time of each of the port's own kernels (namespace raiko)."""
         per_name: dict[str, float] = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 per_name[e.name[:60]] = per_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
         top = dict(sorted(per_name.items(), key=lambda kv: -kv[1])[:4])
-        return sum(per_name.values()), top
+        ours = {name: ms for name, ms in per_name.items() if "raiko" in name}
+        return sum(per_name.values()), top, ours
 
     def save(prof, name: str) -> None:
         with open(os.path.join(out_dir, name), "w") as f:
@@ -821,9 +932,9 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
             eip4844.blob_to_kzg_commitment(blob, cuda)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms, top = device_ms(prof)
+    dev_ms, top, ours = device_ms(prof)
     emit("profile_commit", commits=5, wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
-         top_device_ms=top)
+         top_device_ms=top, kernels_device_ms=ours)
     save(prof, "profile_commit.txt")
 
     build_chain(n_blocks, n_txs, cuda)
@@ -836,10 +947,10 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
             out, out_ms = once_ms(lambda: raiko.get_output(gi))
             _, prove_ms = once_ms(lambda: raiko.prove(gi, out))
         wall_ms = pre_ms + out_ms + prove_ms
-        dev_ms, top = device_ms(prof)
+        dev_ms, top, ours = device_ms(prof)
         emit("profile_request", block=blk, preflight_ms=pre_ms, get_output_ms=out_ms, prove_ms=prove_ms,
              wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
-             launches=kernels.LAUNCHES.snapshot(), top_device_ms=top)
+             launches=kernels.LAUNCHES.snapshot(), top_device_ms=top, kernels_device_ms=ours)
         save(prof, f"profile_request{blk}.txt")
 
 

@@ -15,24 +15,32 @@ namespace bb {
 constexpr uint32_t P = 0x78000001u;       // 2013265921
 constexpr uint32_t NPRIME = 0x77ffffffu;  // -p^-1 mod 2^32
 
+// A value in [0, 2p) made canonical: x - p wraps above x when x < p.
+__device__ __forceinline__ uint32_t canon(uint32_t x) { return min(x, x - P); }
+
 __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;  // < 2p < 2^32
-  return s >= P ? s - P : s;
+  return canon(a + b);  // < 2p < 2^32
 }
 
 __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + P - b;
+  const uint32_t d = a - b;  // wraps when a < b; adding p then lands in [0, p)
+  return min(d, d + P);
 }
 
-// a * b * 2^-32 mod p.  t = a*b = hi:lo; m = lo * (-p^-1) mod 2^32 makes
-// t + m*p divisible by 2^32, and the low words of t and m*p sum to 0 or
-// 2^32 (a carry of 1 exactly when lo != 0); (t + m*p) / 2^32 < 2p.
+// a * b * 2^-32 mod p.  t = a*b; m = t * (-p^-1) mod 2^32 makes t + m*p
+// divisible by 2^32, and (t + m*p) / 2^32 < 2p.
 __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
-  const uint32_t lo = a * b;
-  const uint32_t hi = __umulhi(a, b);
-  const uint32_t m = lo * NPRIME;
-  const uint32_t r = hi + __umulhi(m, P) + (lo != 0u ? 1u : 0u);
-  return r >= P ? r - P : r;
+  const uint64_t t = (uint64_t)a * b;
+  const uint32_t m = (uint32_t)t * NPRIME;
+  return canon((uint32_t)(((uint64_t)m * P + t) >> 32));
+}
+
+// mul(a, b) for a constant b with bn = b * (-p^-1) mod 2^32 given: m is then
+// a * bn, formed beside a * b instead of after it.
+__device__ __forceinline__ uint32_t mul_c(uint32_t a, uint32_t b, uint32_t bn) {
+  const uint64_t t = (uint64_t)a * b;
+  const uint32_t m = a * bn;
+  return canon((uint32_t)(((uint64_t)m * P + t) >> 32));
 }
 
 }  // namespace bb

@@ -219,8 +219,8 @@ __device__ __forceinline__ CPoint c_double(const Lanes<Fd, W>& L, const CPoint& 
   return {c_add(L, m[0], m[0]), c_add(L, m[1], m[2]), m[3]};
 }
 
-// Complete addition, RCB15 Alg. 7 (a = 0): field32.cuh's point_add, value
-// for value, its 12 products in two layers of 6.
+// Complete addition, RCB15 Alg. 7 (a = 0): the reference's kzg/curve.py
+// and ops/secp.py add, value for value, its 12 products in two layers of 6.
 template <class Fd, int W>
 __device__ __forceinline__ CPoint c_point_add(const Lanes<Fd, W>& L, const CPoint& p, const CPoint& q) {
   uint32_t t[6];

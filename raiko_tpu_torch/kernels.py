@@ -39,7 +39,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 # C entry -> argtypes after the leading pointers (all entries end in a stream)
 _ENTRIES = {
-    "raiko_bls12_381_ec_add": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
+    "raiko_bls12_381_ec_add": 3 * [ctypes.c_void_p] + [ctypes.c_longlong, ctypes.c_int],
     "raiko_bls12_381_weighted_fold": 2 * [ctypes.c_void_p] + [ctypes.c_longlong, ctypes.c_int],
     "raiko_secp256k1_shamir_ladder": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
     "raiko_babybear_ntt": 5 * [ctypes.c_void_p] + [ctypes.c_longlong] + 3 * [ctypes.c_int]

@@ -10,6 +10,11 @@ holding 32-bit Montgomery limbs (convert.pack32 of the public (..., 3, 24)
 layout).  On a CUDA tensor a wrapper launches its kernel or raises; only a
 CPU tensor goes to the plain version beside it, which unpacks, runs the
 kzg/curve.py formulas and packs again, bit for bit the same result.
+
+B1 runs each pair on a group of lanes that split the addition's two layers
+of six products: 8 lanes per pair (two products deep, 64 registers) where a
+launch is below one wave and its time is one addition's latency, 2 lanes
+per pair (no lane idle, 80 registers) where the multiply rate bounds it.
 """
 
 from __future__ import annotations
@@ -20,6 +25,14 @@ from .. import convert, kernels
 from ..kzg import curve
 
 NLIMBS32 = 12
+
+# B1's two layouts (csrc/bls12_381_g1.cu), as lanes per pair: 8, one
+# product of each layer per lane, the shortest addition; 2, three products
+# per lane, no lane idle.  ec_add takes 8 up to SPLIT8_MAX_M pairs and 2
+# above.  On an H100 the two crossed between 8,192 pairs (8 lanes 15.2 us,
+# 2 lanes 23.8 us) and 16,384 (27.2 and 26.2 us; PERF.md).
+ADD_LANE_CHOICES = (2, 8)
+SPLIT8_MAX_M = 8192
 
 # Rows per plain-version chunk: one stacked mont_mul holds a
 # (6·rows, 24, 47) int64 temporary.  On the CPU 256 rows (14 MB) keep it
@@ -41,15 +54,28 @@ def ec_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Batched complete G1 addition, bit-exact with kzg/curve.py:add.
 
     p, q: (M, 3, 12) int32 packed Montgomery projective -> (M, 3, 12)."""
+    return ec_add_lanes(p, q, add_lanes(p.shape[0]))
+
+
+def add_lanes(m: int) -> int:
+    """Lanes per pair that ``ec_add`` runs M = m pairs with."""
+    return 8 if m <= SPLIT8_MAX_M else 2
+
+
+def ec_add_lanes(p: torch.Tensor, q: torch.Tensor, lanes: int) -> torch.Tensor:
+    """``ec_add`` in the layout of `lanes` lanes per pair (one of
+    ADD_LANE_CHOICES) on the card; the plain version on the CPU."""
     if p.shape != q.shape or p.dim() != 3 or p.shape[1:] != (3, NLIMBS32):
         raise ValueError(f"ec_add: expected two (M, 3, 12) tensors, got {p.shape}, {q.shape}")
     if p.device.type == "cpu" and q.device.type == "cpu":
         return ec_add_plain(p, q)
     kernels.check(p, "ec_add p", torch.int32, (3, NLIMBS32))
     kernels.check(q, "ec_add q", torch.int32, (3, NLIMBS32))
+    if lanes not in ADD_LANE_CHOICES:
+        raise ValueError(f"ec_add: lanes must be one of {ADD_LANE_CHOICES}, got {lanes}")
     out = torch.empty_like(p)
     if p.shape[0]:
-        kernels.launch("raiko_bls12_381_ec_add", "ec_add", p, q, out, p.shape[0])
+        kernels.launch("raiko_bls12_381_ec_add", "ec_add", p, q, out, p.shape[0], lanes)
     return out
 
 

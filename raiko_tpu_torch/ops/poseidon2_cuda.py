@@ -6,6 +6,13 @@ the STARK commitment's time goes there.  The CUDA source is
 csrc/babybear_poseidon2.cu (its header note says what bounds the kernels on
 the H100 and how the design answers it).
 
+``poseidon2_hash_rows`` runs each row's sponge on a group of four lanes,
+one M4 block of the state per lane, so the commitment's 4,096 rows fill a
+warp on every scheduler of the card; with one warp each, the lanes' chain of
+dependent instructions bounds it, not the multiply rate (92 registers; 1.65
+ms at 4,096 x 4,160 on an H100, PERF.md).  ``poseidon2_compress`` runs one
+pair per thread.
+
 On a CUDA tensor a wrapper launches its kernel or raises; only a CPU tensor
 goes to the plain version in ops/poseidon2.py, bit for bit the same result.
 """

@@ -108,6 +108,34 @@ def test_curve_add_matches_jax():
         assert tcurve.to_affine(row) == hc.g1_add(a, b)
 
 
+SPECIAL_SUMS = ["P+P", "P+(-P)", "P+O", "O+Q", "O+O"]
+
+
+@pytest.mark.parametrize("kind", SPECIAL_SUMS)
+def test_ec_add_plain_special_sums_match_jax(kind):
+    # kernel B1's plain version (packed 32-bit limbs) on the complete
+    # formula's special cases, with general Z, against JAX's add; the same
+    # batch shape as test_curve_add_matches_jax, so JAX reuses its kernels
+    rng = np.random.default_rng(SPECIAL_SUMS.index(kind) + 20)
+    pts = [hc.g1_mul(hc.G1_GEN, int(k)) for k in rng.integers(1, 1 << 62, 16)]
+
+    def proj(pt):
+        if pt is None:
+            return np.asarray(jcurve.identity(()))
+        lam = int.from_bytes(rng.bytes(48), "big") % (hc.P - 1) + 1
+        return np.stack([jlimbs.FP.to_mont_int(pt[0] * lam % hc.P), jlimbs.FP.to_mont_int(pt[1] * lam % hc.P),
+                         jlimbs.FP.to_mont_int(lam)])
+
+    ps, qs = {"P+P": (pts, pts), "P+(-P)": (pts, [hc.g1_neg(pt) for pt in pts]),
+              "P+O": (pts, [None] * 16), "O+Q": ([None] * 16, pts), "O+O": ([None] * 16, [None] * 16)}[kind]
+    p, q = np.stack([proj(a) for a in ps]), np.stack([proj(b) for b in qs])
+    want = np.asarray(jcurve.add(p, q)).astype(np.int64)
+    got = _np(convert.unpack32(ec_cuda.ec_add(convert.pack32(_t(p)), convert.pack32(_t(q)))))
+    assert np.array_equal(got, want)
+    for row, a, b in zip(got, ps, qs):
+        assert tcurve.to_affine(row) == hc.g1_add(a, b)
+
+
 def test_curve_double_matches_jax():
     p, _, ps, _ = _g1_batch(6)
     want = np.asarray(jcurve.double(p)).astype(np.int64)

@@ -133,6 +133,41 @@ def test_g1_kernels_match_plain_on_card(cuda_device):
     assert torch.equal(got.cpu(), ec_cuda.ec_weighted_fold_plain(v))
 
 
+def _with_special_sums(p: torch.Tensor, q: torch.Tensor) -> None:
+    """Pair i of p + q becomes, by i mod 6: a general sum (0), P + P,
+    P + (-P), P + O, O + Q or O + O (O the identity); packed layout."""
+    kind = torch.arange(p.shape[0], device=p.device) % 6
+    inf = convert.pack32(tcurve.identity((), p.device))
+    q[kind == 1] = p[kind == 1]
+    if (kind == 2).any():
+        neg = convert.unpack32(p[kind == 2])
+        neg[:, 1] = FP.neg(neg[:, 1])
+        q[kind == 2] = convert.pack32(neg)
+    q[kind == 3] = inf
+    p[kind == 4] = inf
+    p[kind == 5] = inf
+    q[kind == 5] = inf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 33, 257, 16385])
+def test_ec_add_layouts_match_plain_on_card(cuda_device, setup_points, m):
+    # B1 runs a pair on a group of lanes, 8 or 2 by the width: widths that
+    # fill no whole warp or block, on both sides of the cutoff (8,192), in
+    # both layouts and through ec_add; points with Z != 1 (sums of setup
+    # points) and every special case of the complete formula
+    pool = convert.pack32(setup_points[:512]).to(cuda_device)
+    rng = np.random.default_rng(m)
+    pick = lambda: pool[torch.as_tensor(rng.integers(0, 512, m), device=cuda_device)]
+    p = ec_cuda.ec_add_plain(pick(), pick())
+    q = ec_cuda.ec_add_plain(pick(), pick())
+    _with_special_sums(p, q)
+    want = ec_cuda.ec_add_plain(p, q)
+    for lanes in ec_cuda.ADD_LANE_CHOICES:
+        assert torch.equal(ec_cuda.ec_add_lanes(p, q, lanes), want), lanes
+    assert torch.equal(ec_cuda.ec_add(p, q), want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("j", [1, 2, 256])
 @pytest.mark.parametrize("bsz", [1, 4, 33])

@@ -157,8 +157,9 @@ def test_permute_matches_jax_and_golden():
     assert p2.host_permute(std[1].tolist()) == jp2.host_permute(std[1].tolist())
 
 
-@pytest.mark.parametrize("width", [48, 200])
+@pytest.mark.parametrize("width", [1, 7, 8, 9, 48, 200])
 def test_hash_rows_matches_jax(width):
+    # 1-9 columns: a part-filled chunk, exactly one, one and one element;
     # 200 columns is 25 chunks: the reference's scan branch (nchunks > 8)
     rows = _mont(width, (16, width))
     want = np.asarray(jp2.hash_rows(jnp.asarray(rows)))
@@ -250,6 +251,20 @@ def test_poseidon2_kernels_match_plain_on_card(cuda_device):
     assert torch.equal(got.cpu(), p2.hash_rows_plain(rows))
     pairs = _t(_mont(13, (100, 16)))
     assert torch.equal(poseidon2_cuda.poseidon2_compress(pairs.to(cuda_device)).cpu(), p2.compress_plain(pairs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrows", [1, 3, 33, 4101])
+@pytest.mark.parametrize("width", [1, 7, 8, 9, 48, 200])
+def test_hash_rows_kernel_edges_match_plain_on_card(cuda_device, nrows, width):
+    # the kernel runs each row's sponge on a group of lanes: row counts that
+    # fill no whole warp or block, widths around one rate chunk, and both
+    # the contiguous layout and a transposed view
+    rows = _t(_mont(nrows * 1000 + width, (nrows, width)))
+    want = p2.hash_rows_plain(rows)
+    on_card = rows.to(cuda_device)
+    assert torch.equal(poseidon2_cuda.poseidon2_hash_rows(on_card).cpu(), want)
+    assert torch.equal(poseidon2_cuda.poseidon2_hash_rows(on_card.T.contiguous().T).cpu(), want)
 
 
 @pytest.mark.cuda
