@@ -25,16 +25,27 @@ prints one JSON line; any failure raises and exits non-zero.
    iteration), 1, 33 and 257, with lanes whose indices are all 0, 1 or 2;
    B5 ntt at 4,160 x 4,096
    and intt at 4,160 x 1,024 (the keccak chunk's LDE and interpolation),
-   both at 64 x 2^14 and 1 x 2^20, with the round trip;
+   both at 64 x 2^14 and 1 x 2^20, with the round trip, and both at every
+   size from 2 to 2^24 and at batches 1, 3 and 4,161 of 2^10 and 2^12, in
+   place too; B5 with its coset prologue (ntt_coset) at the keccak chunk's
+   4,160 x 1,024 coefficients to 4,096 points (recorded), and at blowups
+   1-3 of 2^10, 2^12 and 2^13 coefficients;
    poseidon2_hash_rows at 4,096 rows x 4,160 columns (the LDE's transpose,
    recorded) and the flagship's 1,024 x 48, and at 1, 3, 33 and 4,101 rows
    of widths 1, 7, 8, 9, 48 and 200, contiguous and transposed;
-   poseidon2_compress at 2,048 pairs;
-4. ops: the ops entry points that reach B3, B6 and the Keccak and SHA-256
-   kernels, counts reset just before and all four positive after: B3
+   poseidon2_merkle (the whole tree in one launch) over 4,096 leaves
+   (recorded, with the microseconds per level) and over 1, 2, 4, 64, 128,
+   256, 2^16 and 2^20; poseidon2_compress at 2,048 pairs.  B5, ntt_coset,
+   poseidon2_merkle and poseidon2_compress record the card's time per call
+   as a CUDA graph of calls (below about 0.05 ms the host's cost per call
+   is longer than the kernel), their CUDA-event means beside it;
+4. ops: the ops entry points that reach B3, B6, the Keccak and SHA-256
+   kernels, B5 without its prologue and poseidon2_compress, counts reset
+   just before and all six positive after: B3
    ec_double at M = 131,072 (affine points, Z != 1, identities), B6
-   ntt_mxu at 64 x 2^14 and on the keccak chunk's LDE input (4,160 x
-   4,096, equal to B5's ntt there, B5's time beside it), keccak_f1600_batch
+   ntt_mxu and B5's ntt at 64 x 2^14 and on the keccak chunk's LDE input
+   (4,160 x 4,096, equal to B5's ntt there, B5's time beside it),
+   poseidon2.compress on 2,048 pairs of digests, keccak_f1600_batch
    on 8,192 states, keccak256_batch over 8,192 messages of 32-532 bytes,
    sha256_batch over 8,192 48-byte commitments and 1,024 messages of 0-299
    bytes; then each kernel against its plain version, bit for bit, with
@@ -48,9 +59,12 @@ prints one JSON line; any failure raises and exits non-zero.
    just before the requests and B1, B2 and B4 must all be positive after;
 7. stark: the STARK trace commitment of the keccak sponge chunk (1,024 rows
    x 4,160 columns, blowup 4) through ``commit_step`` on the card, counts
-   reset just before and B5 and both Poseidon2 kernels positive after; its
-   root equal to the same step's plain path (CPU tensors); its time by
-   stage; the flagship (256 x 48) root equal to the JAX step's constant;
+   reset just before and after them exactly one launch each of B5's intt,
+   B5 with its coset prologue and poseidon2_hash_rows, one or two of
+   poseidon2_merkle, and none of the per-level compression; its root equal
+   to the same step's plain path (CPU tensors); its time by stage, the
+   upload apart from the conversion; the flagship (256 x 48) root equal to
+   the JAX step's constant;
 8. check: the port's orchestrator proves each served block again on its
    host path (``device=None``: host MSM, per-tx sender recovery, no
    kernel), and each served ``input`` and ``kzg_proof`` must equal its
@@ -108,9 +122,12 @@ SOURCES = {
     "shamir_ladder": ("raiko_tpu_torch/csrc/secp256k1_ladder.cu", "raiko_tpu/ops/secp_pallas.py:254"),
     "ntt": ("raiko_tpu_torch/csrc/babybear_ntt.cu", "raiko_tpu/ops/ntt_pallas.py:180"),
     "intt": ("raiko_tpu_torch/csrc/babybear_ntt.cu", "raiko_tpu/ops/ntt_pallas.py:194"),
+    # B5 with the LDE's coset scaling and zero-pad on load
+    "ntt_coset": ("raiko_tpu_torch/csrc/babybear_ntt.cu", "raiko_tpu/ops/ntt_pallas.py:180"),
     # no Pallas kernel: the XLA sponge and compression they replace
     "poseidon2_hash_rows": ("raiko_tpu_torch/csrc/babybear_poseidon2.cu", "raiko_tpu/ops/poseidon2.py:316"),
     "poseidon2_compress": ("raiko_tpu_torch/csrc/babybear_poseidon2.cu", "raiko_tpu/ops/poseidon2.py:177"),
+    "poseidon2_merkle": ("raiko_tpu_torch/csrc/babybear_poseidon2.cu", "raiko_tpu/ops/merkle.py:22"),
     "ec_double": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:334"),
     "ntt_mxu": ("raiko_tpu_torch/csrc/babybear_ntt_mxu.cu", "raiko_tpu/ops/ntt_mxu.py:183"),
     # XLA in the JAX package
@@ -118,8 +135,8 @@ SOURCES = {
     "sha256_compress": ("raiko_tpu_torch/csrc/sha256.cu", "raiko_tpu/ops/sha256.py:54"),
 }
 SERVED = ("ec_add", "ec_weighted_fold", "shamir_ladder")
-STARK = ("ntt", "intt", "poseidon2_hash_rows", "poseidon2_compress")
-OPS = ("ec_double", "ntt_mxu", "keccak_f1600", "sha256_compress")
+STARK = ("intt", "ntt_coset", "poseidon2_hash_rows", "poseidon2_merkle")
+OPS = ("ec_double", "ntt_mxu", "keccak_f1600", "sha256_compress", "ntt", "poseidon2_compress")
 
 
 def emit(phase: str, **fields) -> None:
@@ -256,8 +273,12 @@ def check_kernel(card: Card, results: dict, name: str, shape, got, want, plain_m
     if not equal:
         raise AssertionError(f"{name} at {list(shape)} differs from its plain version")
     if record:
+        # `ms` is the card's time per call from a CUDA graph where the caller
+        # also gives `events_ms` (the CUDA-event mean, the host's cost per
+        # call included), else that event mean itself
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by}
+                         "bound_by": bound_by, "timing": "graph" if "events_ms" in extra else "events",
+                         "events_ms": extra.get("events_ms", ms)}
 
 
 def check_edges(name: str, cases) -> None:
@@ -442,7 +463,8 @@ def _ntt_work(bsz: int, log_n: int, inverse: bool) -> tuple[float, float]:
 
 
 def phase_stark_kernels(card: Card) -> dict:
-    """B5 and the two Poseidon2 kernels against their plain versions."""
+    """B5 (with and without its coset prologue) and the Poseidon2 kernels
+    against their plain versions."""
     import numpy as np
     import torch
 
@@ -468,14 +490,53 @@ def phase_stark_kernels(card: Card) -> dict:
         plain = getattr(ntt_cuda, f"{name}_plain")
         got = kernel(x)
         want, plain_ms = once_ms(lambda: plain(x))
-        ms = cuda_ms(lambda: kernel(x), 10)
+        ms = graph_ms(lambda: kernel(x), 10)
+        events_ms = cuda_ms(lambda: kernel(x), 10)
         back = (ntt_cuda.intt if name == "ntt" else ntt_cuda.ntt)(got)
         round_trip = bool(torch.equal(back, x))
         nbytes, mults = _ntt_work(shape[0], shape[1].bit_length() - 1, name == "intt")
         check_kernel(card, results, name, shape, got, want, plain_ms, ms, nbytes, mults, record=record,
-                     round_trip=round_trip)
+                     round_trip=round_trip, events_ms=events_ms)
         if not round_trip:
             raise AssertionError(f"{name} at {list(shape)}: the round trip does not return its input")
+    # every size at batch 1, and the commitment's sizes at batches around a
+    # block's rows, through the wrappers and in place (the C entry with
+    # x == out)
+    cases = []
+    for log_n in range(1, ntt_cuda.MAX_LOG_N + 1):
+        x = mont((1, 1 << log_n))
+        cases.append((f"ntt 1x2^{log_n}", ntt_cuda.ntt(x), ntt_cuda.ntt_plain(x)))
+        cases.append((f"intt 1x2^{log_n}", ntt_cuda.intt(x), ntt_cuda.intt_plain(x)))
+    for log_n in (10, 12):
+        for bsz in (1, 3, 4161):
+            x = mont((bsz, 1 << log_n))
+            for inverse, plain in ((False, ntt_cuda.ntt_plain), (True, ntt_cuda.intt_plain)):
+                want = plain(x)
+                y = x.clone()
+                ntt_cuda._launch(y, y, log_n, inverse, "in place")
+                cases.append((f"{'intt' if inverse else 'ntt'} {bsz}x2^{log_n}",
+                              (ntt_cuda.intt if inverse else ntt_cuda.ntt)(x), want))
+                cases.append((f"{'intt' if inverse else 'ntt'} {bsz}x2^{log_n} in place", y, want))
+    check_edges("ntt", cases)
+
+    # B5 with the coset prologue: the keccak chunk's LDE (recorded), then
+    # blowups 1-3 of coefficient rows below, at and above one block's 2^12
+    coeffs = mont((KECCAK_COLS, KECCAK_ROWS))
+    got = ntt_cuda.ntt_coset(coeffs, 2, bb.GENERATOR)
+    want, plain_ms = once_ms(lambda: ntt_cuda.ntt_coset_plain(coeffs, 2, bb.GENERATOR))
+    ms = graph_ms(lambda: ntt_cuda.ntt_coset(coeffs, 2, bb.GENERATOR), 10)
+    lde_n = KECCAK_ROWS << 2
+    check_kernel(card, results, "ntt_coset", (KECCAK_COLS, KECCAK_ROWS, lde_n), got, want, plain_ms, ms,
+                 nbytes=4 * KECCAK_COLS * (KECCAK_ROWS + lde_n),
+                 mults=BB_MUL * KECCAK_COLS * (KECCAK_ROWS + lde_n // 2 * (lde_n.bit_length() - 1)),
+                 events_ms=cuda_ms(lambda: ntt_cuda.ntt_coset(coeffs, 2, bb.GENERATOR), 10))
+    cases = []
+    for log_in in (10, 12, 13):
+        for blowup in (1, 2, 3):
+            x = mont((3, 1 << log_in))
+            cases.append((f"3x2^{log_in} blowup {blowup}", ntt_cuda.ntt_coset(x, blowup, bb.GENERATOR),
+                          ntt_cuda.ntt_coset_plain(x, blowup, bb.GENERATOR)))
+    check_edges("ntt_coset", cases)
 
     # the commitment hashes the rows of the LDE's transpose: a strided view
     lde = mont((KECCAK_COLS, 4 * KECCAK_ROWS))
@@ -505,12 +566,32 @@ def phase_stark_kernels(card: Card) -> dict:
             cases.append((f"{nrows}x{width} transposed", poseidon2_cuda.poseidon2_hash_rows(x.T.contiguous().T), want))
     check_edges("poseidon2_hash_rows", cases)
 
+    # the Merkle tree in one launch over the commitment's 4,096 leaves
+    # (recorded: 4,095 permutations, a chain of 12), then at the sizes where
+    # its tasks change: 1 leaf, one level, a task's 2^7 leaves and one
+    # level either side, and trees of two and three chunks of tasks
+    leaves = mont((lde_n, p2.OUT))
+    got = poseidon2_cuda.poseidon2_merkle(leaves)
+    want, plain_ms = once_ms(lambda: poseidon2_cuda.poseidon2_merkle_plain(leaves))
+    ms = graph_ms(lambda: poseidon2_cuda.poseidon2_merkle(leaves), 20)
+    chain = lde_n.bit_length() - 1
+    check_kernel(card, results, "poseidon2_merkle", (lde_n, p2.OUT), got, want, plain_ms, ms,
+                 nbytes=4 * p2.OUT * (2 * lde_n - 1), mults=(lde_n - 1) * PERM_MULS, chain_permutations=chain,
+                 us_per_level=ms * 1e3 / chain, events_ms=cuda_ms(lambda: poseidon2_cuda.poseidon2_merkle(leaves), 20))
+    cases = []
+    for log_n in (0, 1, 2, 6, 7, 8, 16, 20):
+        x = mont((1 << log_n, p2.OUT))
+        cases.append((f"2^{log_n} leaves", poseidon2_cuda.poseidon2_merkle(x),
+                      poseidon2_cuda.poseidon2_merkle_plain(x)))
+    check_edges("poseidon2_merkle", cases)
+
     pairs = mont((2048, 2 * p2.OUT))
     got = poseidon2_cuda.poseidon2_compress(pairs)
     want, plain_ms = once_ms(lambda: p2.compress_plain(pairs))
-    ms = cuda_ms(lambda: poseidon2_cuda.poseidon2_compress(pairs), 20)
+    ms = graph_ms(lambda: poseidon2_cuda.poseidon2_compress(pairs), 20)
     check_kernel(card, results, "poseidon2_compress", (2048, 16), got, want, plain_ms, ms,
-                 nbytes=4 * 2048 * (16 + 8), mults=2048 * PERM_MULS)
+                 nbytes=4 * 2048 * (16 + 8), mults=2048 * PERM_MULS,
+                 events_ms=cuda_ms(lambda: poseidon2_cuda.poseidon2_compress(pairs), 20))
     return results
 
 
@@ -529,6 +610,7 @@ def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
     from raiko_tpu_torch.fields import babybear as bb
     from raiko_tpu_torch.kzg import curve
     from raiko_tpu_torch.ops import ec_cuda, keccak, keccak_cuda, ntt, ntt_cuda, ntt_mxu, sha256, sha256_cuda
+    from raiko_tpu_torch.ops import poseidon2 as p2
     from raiko_tpu_torch.stark.prover import BLOWUP_LOG
     from raiko_tpu_torch.utils import native
 
@@ -553,12 +635,17 @@ def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
     nodes = [rng.bytes(int(n)) for n in rng.integers(32, 533, 8192)]
     commitments = [rng.bytes(48) for _ in range(8192)]
     mixed = [rng.bytes(int(n)) for n in rng.integers(0, 300, 1024)]
+    # 2,048 pairs of digests
+    left, right = (convert.words_from_numpy(bb.np_to_mont(rng.integers(0, bb.P, (2048, p2.OUT), dtype=np.uint32)),
+                                            "cuda") for _ in range(2))
 
     torch.cuda.synchronize()
     kernels.LAUNCHES.reset()
     doubled = ec_cuda.ec_double(pts)
     mxu64 = ntt_mxu.ntt_mxu(ntt64)
+    b5_64 = ntt.ntt(ntt64)
     mxu_lde = ntt_mxu.ntt_mxu(lde_in)
+    compressed = p2.compress(left, right)
     permuted = keccak.keccak_f1600_batch(kstate)
     node_digests = keccak.keccak256_batch(nodes, "cuda")
     versioned = sha256.sha256_batch(commitments, "cuda")
@@ -575,6 +662,11 @@ def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
     ms = cuda_ms(lambda: ec_cuda.ec_double(pts), 20)
     check_kernel(card, results, "ec_double", [m, 3, 12], doubled, want, plain_ms, ms,
                  nbytes=2 * m * 144, mults=m * DOUBLE_FMULS * _fmul(12))
+
+    if not torch.equal(compressed, p2.compress_plain(torch.cat([left, right], dim=1))):
+        raise AssertionError("poseidon2.compress on the card differs from its plain version")
+    if not torch.equal(b5_64, ntt_cuda.ntt_plain(ntt64)):
+        raise AssertionError("ntt.ntt on the card differs from its plain version")
 
     for x, got, record in ((ntt64, mxu64, True), (lde_in, mxu_lde, False)):
         bsz, n = x.shape
@@ -658,9 +750,12 @@ def phase_stark() -> dict:
     coeffs = ntt.interpolate(tm)
     lde = ntt.lde_from_coeffs(coeffs, BLOWUP_LOG, bb.GENERATOR)
     leaves = p2.hash_rows(lde.T)
+    up = convert.words_from_numpy(trace, "cuda")
     stages = {
         "upload_to_mont_ms": cuda_ms(lambda: bb.to_mont(convert.words_from_numpy(trace, "cuda").T.contiguous()),
                                      5),
+        "upload_ms": cuda_ms(lambda: convert.words_from_numpy(trace, "cuda"), 5),
+        "to_mont_ms": cuda_ms(lambda: bb.to_mont(up.T.contiguous()), 5),
         "interpolate_ms": cuda_ms(lambda: ntt.interpolate(tm), 5),
         "lde_ms": cuda_ms(lambda: ntt.lde_from_coeffs(coeffs, BLOWUP_LOG, bb.GENERATOR), 5),
         "hash_rows_ms": cuda_ms(lambda: p2.hash_rows(lde.T), 5),
@@ -676,6 +771,11 @@ def phase_stark() -> dict:
         raise AssertionError("the card's commitment root differs from the plain path's")
     if not flagship_ok:
         raise AssertionError(f"the flagship root {convert.bb_to_numpy(flagship).tolist()} differs from JAX's")
+    # one launch each of intt, the LDE and the row hash, the tree in one or
+    # two, and nothing else
+    expected = {"intt": (1, 1), "ntt_coset": (1, 1), "poseidon2_hash_rows": (1, 1), "poseidon2_merkle": (1, 2)}
+    if set(launches) != set(expected) or any(not lo <= launches[k] <= hi for k, (lo, hi) in expected.items()):
+        raise AssertionError(f"the commitment's launches {launches}, expected {expected}")
     return launches
 
 
@@ -1001,7 +1101,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "timing": r["timing"],
+         "events_ms": r["events_ms"]}
         for k, r in kres.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,10 +43,11 @@ _ENTRIES = {
     "raiko_bls12_381_weighted_fold": 2 * [ctypes.c_void_p] + [ctypes.c_longlong, ctypes.c_int],
     "raiko_secp256k1_shamir_ladder": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
     "raiko_babybear_ntt": 5 * [ctypes.c_void_p] + [ctypes.c_longlong] + 3 * [ctypes.c_int]
-    + [ctypes.c_uint],
+    + [ctypes.c_uint, ctypes.c_void_p, ctypes.c_int],
     "raiko_poseidon2_hash_rows": 3 * [ctypes.c_void_p] + [ctypes.c_longlong, ctypes.c_int]
     + 2 * [ctypes.c_longlong] + [ctypes.c_uint],
     "raiko_poseidon2_compress": 3 * [ctypes.c_void_p] + [ctypes.c_longlong],
+    "raiko_poseidon2_merkle": 3 * [ctypes.c_void_p] + [ctypes.c_int, ctypes.c_void_p],
     "raiko_bls12_381_ec_double": 2 * [ctypes.c_void_p] + [ctypes.c_longlong],
     "raiko_babybear_ntt_mxu": 6 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
     "raiko_keccak_f1600": 5 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
@@ -169,6 +170,12 @@ def launch(entry: str, counter: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
     LAUNCHES.add(counter)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it when its data does not start on 16 bytes (a view
+    into a larger tensor): the kernels read and write 16 bytes a lane."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, tail: tuple) -> None:

@@ -1,11 +1,12 @@
-"""Merkle tree commitment over Poseidon2 digests, level by level.
+"""Merkle tree commitment over Poseidon2 digests.
 
 Port of raiko_tpu/ops/merkle.py: vector commitments for STARK trace
-layers.  Each level halves the node count with one batched compression
-(the ``poseidon2_compress`` kernel on the card), so a tree of N leaves is
-log2(N) launches.  Leaves arrive in bit-reversed LDE order, which makes
-sibling pairs adjacent rows: a level's (n, 8) digests viewed as (n/2, 16)
-are its pairs, with no gather.
+layers.  Each level halves the node count by compressing sibling pairs;
+on the card the whole tree is one launch of the ``poseidon2_merkle``
+kernel, which writes every internal level into one (N - 1, 8) buffer, and
+the levels are views of it.  Leaves arrive in bit-reversed LDE order,
+which makes sibling pairs adjacent rows: a level's (n, 8) digests viewed
+as (n/2, 16) are its pairs, with no gather.
 """
 
 from __future__ import annotations
@@ -22,14 +23,13 @@ def commit(leaves: torch.Tensor) -> list[torch.Tensor]:
     """Build all levels.  leaves: (N, 8) Montgomery, N a power of two.
 
     Returns [leaves, level1, ..., root] where root has shape (1, 8)."""
+    nodes = poseidon2_cuda.poseidon2_merkle(leaves)  # raises unless N is a power of two
     n = leaves.shape[0]
-    if n < 1 or n & (n - 1):
-        raise ValueError(f"leaf count must be a power of two, got {n}")
-    levels = [leaves]
-    cur = leaves
-    while cur.shape[0] > 1:
-        cur = poseidon2_cuda.poseidon2_compress(cur.to(torch.int32).reshape(cur.shape[0] // 2, 2 * p2.OUT))
-        levels.append(cur)
+    levels, start = [leaves], 0
+    while n > 1:
+        n //= 2
+        levels.append(nodes[start : start + n])
+        start += n
     return levels
 
 

@@ -11,9 +11,12 @@ Arrays are (batch, N) BabyBear tensors in Montgomery form (int32, or int64
 on the CPU), N a power of two.  ``ntt`` and ``intt`` go to kernel B5
 (ops/ntt_cuda.py) on a CUDA tensor, at every size, and to its plain
 version on a CPU tensor; ``ntt_fourstep`` is the same call, since the
-kernel chooses its own split.  The coset scaling, zero-pad and
-bit-reverse gather around them (``lde_from_coeffs``, ``interpolate``)
-stay torch ops, as the reference left them to XLA.
+kernel chooses its own split.  ``lde_from_coeffs`` is one launch of B5
+with its coset prologue (``ntt_cuda.ntt_coset``): the coefficients are
+scaled by shift^i and zero-padded as the kernel loads them, where the
+reference leaves the scaling, the pad and the transform to one XLA jit.
+``coset_pad`` stays, as that prologue's plain version.  The bit-reverse
+gather before ``interpolate``'s inverse transform stays a torch op.
 
 Twiddle tables are numpy, built on the host once per size.
 """
@@ -129,8 +132,12 @@ def coset_pad(coeffs: torch.Tensor, blowup_log: int, shift: int | None = None) -
 def lde_from_coeffs(coeffs: torch.Tensor, blowup_log: int, shift: int | None = None) -> torch.Tensor:
     """Evaluate coefficient-form polynomials (..., N) over the shifted coset
     of size N·2^blowup_log.  Output in bit-reversed order, Montgomery form:
-    coefficients scaled by shift^i, zero-padded, forward NTT."""
-    return ntt(coset_pad(coeffs, blowup_log, shift))
+    coefficients scaled by shift^i, zero-padded, forward NTT (one kernel
+    launch on the card)."""
+    n = coeffs.shape[-1]
+    lead = coeffs.shape[:-1]
+    out = ntt_cuda.ntt_coset(coeffs.reshape(-1, n), blowup_log, bb.GENERATOR if shift is None else shift)
+    return out.reshape(lead + (n << blowup_log,))
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,9 +2,10 @@
 
 Port of the commitment half of raiko_tpu/stark/prover.py.  A trace's
 columns are interpolated (inverse NTT), extended onto the blowup-4 coset
-(forward NTT), the LDE's rows hashed into leaves (the Poseidon2 sponge)
-and the leaves committed in a Merkle tree: kernels B5, poseidon2_hash_rows
-and poseidon2_compress on the card, their plain versions on the CPU.
+(forward NTT with the coset scaling on load), the LDE's rows hashed into
+leaves (the Poseidon2 sponge) and the leaves committed in a Merkle tree:
+kernels B5 (intt, ntt_coset), poseidon2_hash_rows and poseidon2_merkle on
+the card, one launch each, their plain versions on the CPU.
 Everything stays in bit-reversed coset order, as in the reference.
 
 The rest of the prover (quotient, out-of-domain openings, DEEP, FRI) is

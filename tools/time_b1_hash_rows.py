@@ -21,17 +21,7 @@ from __future__ import annotations
 
 import sys
 
-for _name in ("jax", "jaxlib", "raiko_tpu"):
-    sys.modules[_name] = None
-
-import argparse
-import json
-import os
-import subprocess
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
-from chip_smoke import cuda_ms as events_ms, graph_ms  # noqa: E402
+from kernel_timing import cuda_ms as events_ms, emit, graph_ms, start
 
 WIDTHS = (256, 1024, 4096, 8192, 16384, 32768, 65536, 131072)
 EDGE_M = (1, 5, 33, 257, 16385)  # checked, not timed: partial warps and blocks
@@ -39,33 +29,16 @@ EDGE_ROWS, EDGE_WIDTHS = (1, 3, 33, 4101), (1, 7, 8, 9, 48, 200)
 SEED = 20240613
 
 
-def emit(**fields) -> None:
-    print(json.dumps(fields), flush=True)
-
-
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--root", default=REPO, help="checkout whose raiko_tpu_torch to time")
-    parser.add_argument("--label", default="", help="a name for this checkout in the output")
-    args = parser.parse_args()
+    args = start(__doc__)
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("time_b1_hash_rows: torch sees no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    sys.path.insert(0, os.path.abspath(args.root))
-    from raiko_tpu_torch import convert, kernels
+    from raiko_tpu_torch import convert
     from raiko_tpu_torch.fields import babybear as bb
     from raiko_tpu_torch.kzg import curve
     from raiko_tpu_torch.ops import ec_cuda, poseidon2 as p2, poseidon2_cuda
 
-    kernels.library()
-    with open(kernels.BUILD_INFO["log"]) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "entry function" in ln]
-    emit(label=args.label, root=os.path.abspath(args.root), ptxas=ptxas)
     rng = np.random.default_rng(SEED)
 
     # B1: p affine setup points, q general projective, with P + P, P + O,
