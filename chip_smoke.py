@@ -65,7 +65,20 @@ prints one JSON line; any failure raises and exits non-zero.
    to the same step's plain path (CPU tensors); its time by stage, the
    upload apart from the conversion; the flagship (256 x 48) root equal to
    the JAX step's constant;
-8. check: the port's orchestrator proves each served block again on its
+8. stark_prove: whole STARK proofs through the port's ``prove`` and
+   ``verify`` on the card: the fib AIR (log_n 6), the Poseidon2 transcript
+   AIR and the keccak sponge chunk (23 permutations of seeded messages,
+   1,024 rows x 4,160 columns, 3,461 fixed columns, 4 quotient chunks),
+   each from the inputs of its JAX golden (``tests/golden/stark_*.json``,
+   written by ``tools/make_stark_goldens.py``); each proof's canonical JSON
+   must hash to the golden's sha256 and pass the port's verifier, and the
+   counts, reset just before each proof, must show B5's intt and
+   ntt_coset, poseidon2_hash_rows and poseidon2_merkle launched; its time by
+   stage (each stage ends with a device synchronisation; ``transcript`` is
+   the host's hashing of the Fiat-Shamir transcript between stages), its
+   launches and its peak device memory; the keccak chunk is proven twice,
+   cold and warm, the warm proof checked against the golden only;
+9. check: the port's orchestrator proves each served block again on its
    host path (``device=None``: host MSM, per-tx sender recovery, no
    kernel), and each served ``input`` and ``kzg_proof`` must equal its
    result, the proof verifying; no JAX or ``raiko_tpu`` module was loaded.
@@ -73,10 +86,11 @@ prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the device line.
 
 ``--profile DIR`` runs phases 1-2, then times the stages of one dense blob
-commitment, and puts five commitments and each of three served-path
-requests (through the port's orchestrator) under torch.profiler: device
-time against wall time, launches, the top kernels and the device time of
-each of the port's own kernels.  The profiler's tables
+commitment, and puts five commitments, one warm keccak-chunk STARK proof
+(device and wall time of each prover stage) and each of three
+served-path requests (through the port's orchestrator) under
+torch.profiler: device time against wall time, launches, the top kernels
+and the device time of each of the port's own kernels.  The profiler's tables
 go to DIR/profile_*.txt.
 """
 
@@ -137,6 +151,8 @@ SOURCES = {
 SERVED = ("ec_add", "ec_weighted_fold", "shamir_ladder")
 STARK = ("intt", "ntt_coset", "poseidon2_hash_rows", "poseidon2_merkle")
 OPS = ("ec_double", "ntt_mxu", "keccak_f1600", "sha256_compress", "ntt", "poseidon2_compress")
+# the proofs of phase stark_prove, each against its JAX golden
+PROOF_CASES = ("fib", "transcript", "keccak_chunk")
 
 
 def emit(phase: str, **fields) -> None:
@@ -779,6 +795,85 @@ def phase_stark() -> dict:
     return launches
 
 
+def golden_case(case: str):
+    """(AIR, trace, publics, golden) of a JAX golden, built by the port from
+    the golden's inputs."""
+    from raiko_tpu_torch.stark.airs.fib import FibAir
+    from raiko_tpu_torch.stark.airs.keccak_air import KeccakBatchSpongeAir
+    from raiko_tpu_torch.stark.airs.poseidon2_air import Poseidon2TranscriptAir
+
+    with open(os.path.join(ROOT, "tests", "golden", f"stark_{case}.json")) as f:
+        g = json.load(f)
+    inp = g["inputs"]
+    if case == "fib":
+        trace, publics = FibAir.trace(inp["log_n"], inp["a"], inp["b"])
+        return FibAir(), trace, publics, g
+    if case == "transcript":
+        air = Poseidon2TranscriptAir(inp["blocks"])
+        return air, air.trace(), air.publics_for(air.compute_digest()), g
+    air = KeccakBatchSpongeAir([bytes.fromhex(m) for m in inp["messages"]])
+    return air, air.trace(), air.publics(), g
+
+
+def phase_stark_prove() -> dict:
+    """Whole proofs on the card against the JAX goldens; returns the
+    launches of one keccak-chunk proof."""
+    import hashlib
+
+    import torch
+
+    from raiko_tpu_torch import kernels
+    from raiko_tpu_torch.stark import prover, serde, verifier
+    from raiko_tpu_torch.utils.measurement import Measurement
+
+    per_proof = {}
+    for case in PROOF_CASES:
+        air, trace, publics, g = golden_case(case)
+        fixed = air.fixed_columns(trace.shape[0])
+        for run in ("cold", "warm") if case == "keccak_chunk" else ("cold",):
+            stages: dict = {}
+
+            def record(title: str, seconds: float) -> None:
+                key = title.removeprefix("stark.") + "_ms"
+                stages[key] = stages.get(key, 0.0) + seconds * 1e3
+
+            token = Measurement.subscribe(record)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.LAUNCHES.reset()
+            try:
+                proof, ms = once_ms(lambda: prover.prove(air, trace, publics, device="cuda"))
+            finally:
+                Measurement.unsubscribe(token)
+            launches = kernels.LAUNCHES.snapshot()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            canon = json.dumps(serde.proof_to_dict(proof), sort_keys=True)
+            sha = hashlib.sha256(canon.encode()).hexdigest()
+            verified, verify_ms = True, None
+            if run == "cold":
+                verified, verify_ms = once_ms(lambda: verifier.verify(air, proof, device="cuda"))
+            emit("stark_prove", case=case, run=run, air=type(air).__name__, trace=list(trace.shape),
+                 fixed_columns=0 if fixed is None else int(fixed.shape[0]),
+                 quotient_chunks=air.quotient_chunks, prove_s=ms / 1e3, stages_ms=stages,
+                 between_stages_ms=ms - sum(stages.values()), launches=launches, peak_device_gb=peak_gb,
+                 sha256=sha, golden_sha256=g["sha256"], equal_golden=sha == g["sha256"], verified=verified,
+                 verify_s=None if verify_ms is None else verify_ms / 1e3,
+                 jax_cpu_prove_s=g["jax_cpu_prove_seconds"])
+            if sha != g["sha256"]:
+                d = serde.proof_to_dict(proof)
+                roots = {k: d[k] for k in ("trace_root", "aux_root", "fixed_root", "quotient_root")}
+                roots["fri_layer_roots"] = d["fri"]["layer_roots"]
+                differ = [k for k, v in roots.items() if g["roots"][k] != v]
+                raise AssertionError(f"{case}: the proof differs from the JAX golden (roots that differ: {differ})")
+            if not verified:
+                raise AssertionError(f"{case}: the port's verifier rejects the card's proof")
+            missing = [k for k in STARK if launches.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"{case}: kernels not launched by the proof: {missing}")
+        per_proof[case] = launches
+    return per_proof["keccak_chunk"]
+
+
 def random_blob(seed: int) -> bytes:
     """A full blob of random field elements."""
     import numpy as np
@@ -979,9 +1074,10 @@ def refused_modules() -> list[str]:
 
 
 def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
-    """Where the time of a dense blob commitment and of a served request
-    goes: synchronised stage times, then torch.profiler's device time
-    against wall time (the busy share).  Tables go to `out_dir`."""
+    """Where the time of a dense blob commitment, of a keccak-chunk STARK
+    proof and of a served request goes: synchronised stage times, then
+    torch.profiler's device time against wall time (the busy share), for
+    the proof by stage.  Tables go to `out_dir`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -999,10 +1095,12 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
 
     def device_ms(prof) -> tuple[float, dict, dict]:
         """Total device time of the run, the four largest kernels, and the
-        time of each of the port's own kernels (namespace raiko)."""
+        time of each of the port's own kernels (namespace raiko).  The
+        prover's stage ranges (``stark.*``) also appear on the device's
+        timeline; they are spans, not work, and are left out."""
         per_name: dict[str, float] = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("stark."):
                 per_name[e.name[:60]] = per_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
         top = dict(sorted(per_name.items(), key=lambda kv: -kv[1])[:4])
         ours = {name: ms for name, ms in per_name.items() if "raiko" in name}
@@ -1036,6 +1134,27 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
     emit("profile_commit", commits=5, wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
          top_device_ms=top, kernels_device_ms=ours)
     save(prof, "profile_commit.txt")
+
+    # a warm keccak-chunk STARK proof: the device time of each stage (its
+    # torch.profiler range, kernels launched inside it) against its wall time
+    from raiko_tpu_torch.stark import prover
+
+    air, trace, publics, _ = golden_case("keccak_chunk")
+    prover.prove(air, trace, publics, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.reset()
+    with profile(activities=activities) as prof:
+        _, wall_ms = once_ms(lambda: prover.prove(air, trace, publics, device="cuda"))
+    dev_ms, top, ours = device_ms(prof)
+    stage_wall, stage_dev = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("stark."):
+            stage_wall[e.name] = stage_wall.get(e.name, 0.0) + e.cpu_time_total / 1e3
+            stage_dev[e.name] = stage_dev.get(e.name, 0.0) + e.device_time_total / 1e3
+    emit("profile_prove", case="keccak_chunk", wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
+         stage_wall_ms=stage_wall, stage_device_ms=stage_dev, launches=kernels.LAUNCHES.snapshot(),
+         top_device_ms=top, kernels_device_ms=ours)
+    save(prof, "profile_prove.txt")
 
     build_chain(n_blocks, n_txs, cuda)
     for blk in range(1, n_blocks + 1):
@@ -1092,6 +1211,7 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the commitment path: {missing}")
     launches.update({k: stark_launches[k] for k in STARK})
+    proof_launches = phase_stark_prove()
     launches.update(ops_launches)
     check_requests(served)
     loaded = refused_modules()
@@ -1102,7 +1222,7 @@ def main(argv=None) -> int:
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "timing": r["timing"],
-         "events_ms": r["events_ms"]}
+         "events_ms": r["events_ms"], "launches_per_keccak_proof": proof_launches.get(k, 0)}
         for k, r in kres.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

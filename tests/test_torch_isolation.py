@@ -6,8 +6,9 @@ package) and none of ``jax``.  A subprocess that refuses both imports every
 port module, serves one v2 ``native`` request for a 16-tx taiko_a7 blob
 block through the port's server on the CPU, proves the same block again
 on the port's host path (``device=None``: host MSM, per-tx recovery), which
-shares no code with the kernels, and runs the flagship commitment step;
-its root must equal the JAX step's.
+shares no code with the kernels, runs the flagship commitment step,
+whose root must equal the JAX step's, and proves and verifies a fib AIR,
+whose proof must hash as the JAX package's golden proof does.
 """
 
 import ast
@@ -66,7 +67,7 @@ def test_port_tree_is_whole():
 
 
 _SCRIPT = r"""
-import importlib, json, pkgutil, socket, sys, time, urllib.request
+import hashlib, importlib, json, pkgutil, socket, sys, time, urllib.request
 
 for name in ("jax", "jaxlib", "raiko_tpu"):
     sys.modules[name] = None  # import raises ModuleNotFoundError
@@ -125,12 +126,19 @@ host = raiko.prove(gi, out)
 served = r["data"].get("proof") or {}
 trace = np.random.default_rng(0).integers(0, 2013265921, (256, 48), np.uint32)
 root = commit_step(trace, "cpu").numpy().astype(np.uint32).tolist()
+from raiko_tpu_torch.stark import prover as stark_prover, serde as stark_serde, verifier as stark_verifier
+from raiko_tpu_torch.stark.airs.fib import FibAir
+fib_trace, fib_publics = FibAir.trace(6)
+fib_proof = stark_prover.prove(FibAir(), fib_trace, fib_publics, device="cpu")
+fib_json = json.dumps(stark_serde.proof_to_dict(fib_proof), sort_keys=True)
 print(json.dumps({
     "status": r["data"]["status"],
     "input_equal": served.get("input") == host.input_hash == "0x" + out.hash.hex(),
     "kzg_equal": host.kzg_proof is not None and served.get("kzg_proof") == host.kzg_proof,
     "txs": len(gi.transactions),
     "root": root,
+    "fib_verified": stark_verifier.verify(FibAir(), fib_proof, device="cpu"),
+    "fib_sha256": hashlib.sha256(fib_json.encode()).hexdigest(),
     "refused_loaded": sorted(m for m, mod in sys.modules.items()
                              if m.split(".")[0] in ("jax", "jaxlib", "raiko_tpu") and mod is not None),
 }))
@@ -152,4 +160,8 @@ def test_port_serves_and_commits_with_reference_refused():
     assert res["txs"] >= 16
     assert res["root"] == [1103079180, 844803899, 311541641, 1509639592,
                            1993886486, 1956685620, 1597694602, 1842386190]
+    assert res["fib_verified"] is True
+    with open(os.path.join(REPO, "tests", "golden", "stark_fib.json")) as f:
+        golden = json.load(f)  # the JAX package's proof (tools/make_stark_goldens.py)
+    assert res["fib_sha256"] == golden["sha256"]
     assert res["refused_loaded"] == []
