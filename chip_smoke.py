@@ -44,12 +44,19 @@ prints one JSON line; any failure raises and exits non-zero.
    just before and all six positive after: B3
    ec_double at M = 131,072 (affine points, Z != 1, identities), B6
    ntt_mxu and B5's ntt at 64 x 2^14 and on the keccak chunk's LDE input
-   (4,160 x 4,096, equal to B5's ntt there, B5's time beside it),
-   poseidon2.compress on 2,048 pairs of digests, keccak_f1600_batch
-   on 8,192 states, keccak256_batch over 8,192 messages of 32-532 bytes,
-   sha256_batch over 8,192 48-byte commitments and 1,024 messages of 0-299
-   bytes; then each kernel against its plain version, bit for bit, with
-   both times and its bound, and the digests against the host's;
+   (4,160 x 4,096), poseidon2.compress on 2,048 pairs of digests,
+   keccak_f1600_batch on 8,192 states, keccak256_batch over 8,192
+   messages of 32-532 bytes, sha256_batch over 8,192 48-byte commitments
+   and 1,024 messages of 0-299 bytes; then each kernel against its plain
+   version, bit for bit, with both times and its bound, and the digests
+   against the host's.  B3 also at 256, 4,096, 16,384 and 131,072 points
+   (CUDA graphs, event means beside them) and at M = 1, 5, 33 and 4,099;
+   B6 also equal to B5's ntt at both shapes, timed as CUDA graphs beside
+   B5 and beside torch._int_mm of its two stacked digit products (the
+   product half's yardstick), and at every size 2^0 to 2^14 against its
+   plain version and B5; then the run fails unless B6's built kernels
+   hold IMMA (int8 tensor-core) instructions and no IDP (__dp4a), by
+   ``cuobjdump -sass`` (started after the build, beside the phases);
 5. kzg: the zero blob's versioned hash against its published value, and a
    random full blob's commitment and opening proof against the host path,
    the proof passing verify_kzg_proof;
@@ -107,6 +114,7 @@ REFUSED = ("jax", "jaxlib", "raiko_tpu")
 for _name in REFUSED:
     sys.modules[_name] = None
 
+import concurrent.futures
 import json
 import os
 import socket
@@ -130,6 +138,7 @@ KECCAK_ROWS, KECCAK_COLS = 1024, 4160  # provers/tpu_stark.py:323, stark/airs/ke
 # B1's launch widths in a served blob MSM: the bucket sums' tree levels run
 # about 63,000 down to 80 pairs, the combine 16,384 down to 256
 B1_WIDTHS = (256, 1024, 4096, 16384, 65536, 131072)
+B3_WIDTHS = (256, 4096, 16384, 131072)  # B3's timed widths
 SOURCES = {
     "ec_add": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:244"),
     "ec_weighted_fold": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:302"),
@@ -264,6 +273,25 @@ def phase_device() -> Card:
     return card
 
 
+def mxu_sass(lib_path: str) -> dict:
+    """{B6 kernel: its counts of IMMA (int8 tensor-core) and IDP (__dp4a)
+    instructions} in the built library, from ``cuobjdump -sass``."""
+    from raiko_tpu_torch import kernels
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif name is not None and "mxu" in name:
+            c = counts.setdefault(name, {"IMMA": 0, "IDP": 0})
+            c["IMMA"] += "IMMA" in line
+            c["IDP"] += "IDP" in line
+    return counts
+
+
 def phase_build():
     from raiko_tpu_torch import kernels
 
@@ -273,6 +301,20 @@ def phase_build():
         ptxas = [ln.strip() for ln in f if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=kernels.BUILD_INFO["seconds"],
          ptxas=ptxas)
+    # cuobjdump takes about 10 s of the host: it runs beside the phases that
+    # follow, and check_mxu_sass waits for it
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pending = pool.submit(mxu_sass, kernels.BUILD_INFO["path"])
+    pool.shutdown(wait=False)
+    return pending
+
+
+def check_mxu_sass(pending) -> None:
+    """Fail unless B6's built kernels hold IMMA and no IDP instructions."""
+    sass = pending.result()
+    emit("mxu_sass", kernels=sass)
+    if not sass or any(c["IMMA"] == 0 or c["IDP"] for c in sass.values()):
+        raise AssertionError(f"B6's kernels must run on the int8 tensor cores (IMMA) and not __dp4a: {sass}")
 
 
 def check_kernel(card: Card, results: dict, name: str, shape, got, want, plain_ms: float, ms: float | None,
@@ -611,6 +653,23 @@ def phase_stark_kernels(card: Card) -> dict:
     return results
 
 
+def int_mm_ms(bsz: int, r: int, c: int) -> float:
+    """Milliseconds of torch._int_mm (cuBLAS int8 x int8 -> int32) for B6's
+    two stacked digit products on `bsz` rows of R x C: (4R, R) x (R, 4C
+    bsz) and (4C, C) x (C, 4R bsz), on random digits (the time does not
+    depend on them).  A yardstick for the product half: no PyTorch call
+    computes B6 and the port calls none of this."""
+    import torch
+
+    total = 0.0
+    for m, lanes in ((r, c), (c, r)):
+        a = torch.randint(-128, 128, (4 * m, m), dtype=torch.int8, device="cuda")
+        bt = torch.randint(-128, 128, (4 * lanes * bsz, m), dtype=torch.int8, device="cuda")
+        total += cuda_ms(lambda: torch._int_mm(a, bt.t()), 10)
+        del a, bt
+    return total
+
+
 def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
     """B3, B6, Keccak-256 and SHA-256 through the port's ops entry points
     (``ec_cuda.ec_double``, ``ntt_mxu.ntt_mxu``, ``keccak.keccak_f1600_batch``
@@ -674,24 +733,44 @@ def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
         raise AssertionError(f"kernels not launched on the ops path: {missing}")
 
     results = {}
+    # B3: the recorded width (CUDA events, as before), then the widths of
+    # B1's served MSM (prefixes of the same points) as CUDA graphs, event
+    # means beside them; then widths that are no multiple of a warp's 8
+    # points, with Z != 1 and identities
+    double_work = lambda k: dict(nbytes=2 * k * 144, mults=k * DOUBLE_FMULS * _fmul(12))
     want, plain_ms = once_ms(lambda: ec_cuda.ec_double_plain(pts))
     ms = cuda_ms(lambda: ec_cuda.ec_double(pts), 20)
-    check_kernel(card, results, "ec_double", [m, 3, 12], doubled, want, plain_ms, ms,
-                 nbytes=2 * m * 144, mults=m * DOUBLE_FMULS * _fmul(12))
+    check_kernel(card, results, "ec_double", [m, 3, 12], doubled, want, plain_ms, ms, **double_work(m))
+    for k in B3_WIDTHS:
+        pk = pts[:k]
+        fn = lambda: ec_cuda.ec_double(pk)
+        check_kernel(card, results, "ec_double", [k, 3, 12], fn(), want[:k], None, graph_ms(fn, 20 if k <= 16384 else 5),
+                     record=False, events_ms=cuda_ms(fn, 20), **double_work(k))
+    cases = []
+    for k in (1, 5, 33, 4099):
+        pk = ec_cuda.ec_add_plain(pick(k), pick(k))
+        pk[::7] = convert.pack32(curve.identity((), "cuda"))
+        cases.append((f"M={k}", ec_cuda.ec_double(pk), ec_cuda.ec_double_plain(pk)))
+    check_edges("ec_double", cases)
 
     if not torch.equal(compressed, p2.compress_plain(torch.cat([left, right], dim=1))):
         raise AssertionError("poseidon2.compress on the card differs from its plain version")
     if not torch.equal(b5_64, ntt_cuda.ntt_plain(ntt64)):
         raise AssertionError("ntt.ntt on the card differs from its plain version")
 
+    # B6 at the two recorded shapes: the card's time per call (CUDA graph),
+    # the event mean beside it, B5's ntt on the same rows, and the yardstick
+    # of its product half, torch._int_mm (cuBLAS int8) of both passes'
+    # stacked digit products
     for x, got, record in ((ntt64, mxu64, True), (lde_in, mxu_lde, False)):
         bsz, n = x.shape
         log_n = n.bit_length() - 1
         r, c = 1 << (log_n // 2), 1 << (log_n - log_n // 2)
         want, plain_ms = once_ms(lambda: ntt_mxu.ntt_mxu_plain(x))
-        ms = cuda_ms(lambda: ntt_mxu.ntt_mxu(x), 10)
+        fn = lambda: ntt_mxu.ntt_mxu(x)
+        ms = graph_ms(fn, 10)
         b5 = ntt_cuda.ntt(x)
-        b5_ms = cuda_ms(lambda: ntt_cuda.ntt(x), 10)
+        b5_ms = graph_ms(lambda: ntt_cuda.ntt(x), 10)
         ntt_bound_ms, ntt_bound_by = card.bound(*_ntt_work(bsz, log_n, False))
         equal_b5 = bool(torch.equal(got, b5))
         # own work: the int8 MACs of both passes, each element in and out
@@ -699,9 +778,19 @@ def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
         check_kernel(card, results, "ntt_mxu", [bsz, n], got, want, plain_ms, ms, nbytes=8 * bsz * n,
                      mults=bsz * n * (2 * MXU_RECOMB_MULS + BB_MUL), int8_macs=16 * n * (r + c) * bsz,
                      record=record, equal_b5=equal_b5, b5_ms=b5_ms, ntt_bound_ms=ntt_bound_ms,
-                     ntt_bound_by=ntt_bound_by)
+                     ntt_bound_by=ntt_bound_by, events_ms=cuda_ms(fn, 10), int_mm_ms=int_mm_ms(bsz, r, c))
         if not equal_b5:
             raise AssertionError(f"ntt_mxu at {[bsz, n]} differs from B5's ntt")
+    # every size 2^0 to 2^14, three rows each, against the plain version and
+    # (from 2^1, B5's smallest) B5's ntt
+    cases = []
+    for log_n in range(ntt_mxu.MAX_LOG_M * 2 + 1):
+        x = convert.words_from_numpy(bb.np_to_mont(rng.integers(0, bb.P, (3, 1 << log_n), dtype=np.uint32)), "cuda")
+        got = ntt_mxu.ntt_mxu(x)
+        cases.append((f"3x2^{log_n}", got, ntt_mxu.ntt_mxu_plain(x)))
+        if log_n:
+            cases.append((f"3x2^{log_n} B5", got, ntt_cuda.ntt(x)))
+    check_edges("ntt_mxu", cases)
 
     want, plain_ms = once_ms(lambda: keccak.keccak_f1600_plain(kstate))
     ms = cuda_ms(lambda: keccak.keccak_f1600_batch(kstate), 20)
@@ -1190,9 +1279,10 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
+    pending_sass = phase_build()
     if args.profile:
         phase_profile(os.path.abspath(args.profile), n_blocks=3, n_txs=100)
+        check_mxu_sass(pending_sass)
         emit("refused", loaded=refused_modules())
         return 0
     setup32 = convert.pack32(convert.setup_points(torch.device("cuda")))
@@ -1200,6 +1290,7 @@ def main(argv=None) -> int:
     kres.update(phase_stark_kernels(card))
     ops_results, ops_launches = phase_ops(card, setup32)
     kres.update(ops_results)
+    check_mxu_sass(pending_sass)
     phase_kzg()
     per_request, launches, served = phase_serve("cuda", n_blocks=3, n_txs=100)
     emit("serve", requests=len(per_request), seconds_per_request=per_request, launches=launches)

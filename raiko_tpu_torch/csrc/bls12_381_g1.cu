@@ -20,7 +20,7 @@
 //   independent products with additions between them, so a pair runs on a
 //   group of S lanes, each running ceil(6 / S) products of a layer, the
 //   values passing between the lanes through shared memory
-//   (ec_add_split_kernel).  S = 8 (6 lanes busy) makes an addition two
+//   (ec_split_kernel<AddOp, S>).  S = 8 (6 lanes busy) makes an addition two
 //   products deep: 6.3 us a launch at 256 pairs, 8.9 us at 4,096 on an
 //   H100 80GB HBM3 (700 W).  S = 2 leaves no lane idle, and at 80 registers
 //   and 37 KB of shared memory a block an SM keeps 24 warps: 0.156 ms at
@@ -52,9 +52,18 @@
 //   chain's latency (4 product layers of 12 shuffle-linked steps, and about
 //   16 dependent additions, each two ballot rounds), not a throughput.
 // * B3 is RCB15 Alg. 9: 8 CIOS products per point against 288 bytes
-//   moved, so integer multiplies bound it too.  One thread per point,
-//   point_double of field32.cuh (125 registers with its carry chains;
-//   0.151 ms at 131,072 points on the H100 above, 0.170 ms before them).
+//   moved, so integer multiplies bound it too.  Alg. 9 is two layers of four
+//   independent products, so a point runs on B1's machinery
+//   (ec_split_kernel<DoubleOp, 4>), which one thread per point (125
+//   registers, 0.149 ms at 131,072 points) left unused.  S = 4 (one
+//   product of a layer per lane) makes a doubling two products deep, and
+//   at 56 registers and 18.7 KB of shared memory a block an SM keeps more
+//   warps than S = 2 did (72 registers, 37 KB; measured and not kept): on
+//   the H100 above S = 4 was as fast as S = 2 or faster at every width
+//   from 256 points (6.0 us a launch against 10.2, and 29.2 one thread
+//   per point) to 131,072 (0.0975 ms against 0.103; 38% of the multiply
+//   bound), the two equal at 16,384, so every width takes S = 4.  ptxas
+//   (nvcc 12.9, sm_90a, -O3) gives it 56 registers, no spills.
 // The Pallas kernels' TPU layout (limbs on sublanes, six products stacked
 // along lanes, deferred Kogge-Stone carries) does not carry over.
 
@@ -84,25 +93,32 @@ struct BlsFp {
   }
 };
 
-using G1 = Point<BlsFp>;
-
 // ---- kernels -----------------------------------------------------------
 
-// B1, one pair over a group of S lanes (S = 2 or 8), by product: RCB15
-// Alg. 7 as two layers of six independent Montgomery products with the
-// additions between them, each lane running K = ceil(6 / S) products of a
-// layer (lane l the products l, l + S, ...).  Values pass between the lanes
-// of a group through shared memory, each 12-limb value at its own 12 words:
-// region A holds the pair's inputs (p then q), then the six operands D of
-// the second layer, then the output; region B the first layer's products,
-// then the second's.  Each pair's slice of a region is 73 words, so the
-// groups of a warp read different banks.  A warp owns 32 / S consecutive
-// pairs and loads and stores them whole, coalesced; only __syncwarp orders
-// the phases.
+// B1 and B3, one item (a pair to add, a point to double) over a group of S
+// lanes, by product.  RCB15 Alg. 7 and Alg. 9 are each two layers of
+// independent Montgomery products (6 and 4) with additions between them; a
+// lane runs K = ceil(products / S) products of a layer (lane l the products
+// l, l + S, ...).  Values pass between the lanes of a group through shared
+// memory, each 12-limb value at its own 12 words: region A holds the item's
+// inputs, then the second layer's operands D, then the output; region B the
+// first layer's products, then the second's.  Each item's slice of a region
+// is 73 words, so the groups of a warp read different banks.  A warp owns
+// 32 / S consecutive items and loads and stores them whole, coalesced; only
+// __syncwarp orders the phases.  The formula is a struct Op:
+//   kInputs         points in (2: p then q; 1: p)
+//   kProducts       products per layer
+//   kDerived        second-layer operands D
+//   layer1(k, A, x, y)  operands of first-layer product k
+//   derive(k, B, d)     D_k from the first layer's products
+//   op_a(k), op_b(k)    the D indices of second-layer product k
+//   finish(c, B, r)     output coordinate c from the second layer's products
+// Every field operation returns a canonical value, so the output equals the
+// plain version's bit for bit whatever the grouping.
 constexpr int kSplitStride = 73;
 constexpr int kSplitWarps = 4;
 
-// Limb j of value v of one pair's slice.
+// Limb j of value v of one item's slice.
 __device__ __forceinline__ void sm_load(uint32_t (&r)[12], const uint32_t* s, int v) {
 #pragma unroll
   for (int j = 0; j < 12; ++j) r[j] = s[12 * v + j];
@@ -117,71 +133,33 @@ __device__ __forceinline__ void select12(uint32_t (&r)[12], bool c, const uint32
   for (int j = 0; j < 12; ++j) r[j] = c ? a[j] : b[j];
 }
 
-template <int S>
-__global__ void __launch_bounds__(32 * kSplitWarps) ec_add_split_kernel(const uint32_t* __restrict__ p,
-                                                                        const uint32_t* __restrict__ q,
-                                                                        uint32_t* __restrict__ out,
-                                                                        long long m) {
-  constexpr int K = (6 + S - 1) / S;  // products per lane per layer
-  constexpr int PAIRS = 32 / S;       // pairs per warp
-  __shared__ uint32_t smem[kSplitWarps][2][PAIRS * kSplitStride];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long pair0 = ((long long)blockIdx.x * kSplitWarps + warp) * PAIRS;
-  if (pair0 >= m) return;  // the whole warp
-  const int np = m - pair0 < PAIRS ? (int)(m - pair0) : PAIRS;
-  uint32_t* a_all = smem[warp][0];
-  uint32_t* b_all = smem[warp][1];
-  for (int i = lane; i < np * 36; i += 32) {
-    const int k = i / 36, w = i % 36;
-    a_all[k * kSplitStride + w] = p[(pair0 + k) * 36 + w];
-    a_all[k * kSplitStride + 36 + w] = q[(pair0 + k) * 36 + w];
+// RCB15 Alg. 7, complete addition (B1).  A: p (X1, Y1, Z1) at values 0-2,
+// q at 3-5.  Layer 1: t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2,
+// s1 = (X1 + Y1)(X2 + Y2), s2 = (Y1 + Z1)(Y2 + Z2), s3 = (X1 + Z1)(X2 + Z2).
+// D, from B's t0, t1, t2, s1, s2, s3 (values 0-5), in one shape per pair
+// of them (with S = 2 a slot holds one pair, so the warp takes one branch):
+//   D0 = t3 = s1 - (t0 + t1)          D1 = t4 = s2 - (t1 + t2)
+//   D2 = y3b = b3 (s3 - (t0 + t2))    D3 = t0b = t0 + (t0 + t0)
+//   D4 = z3a = t1 + b3 t2             D5 = t1b = t1 - b3 t2
+// Layer 2: m0 = t4 y3b, m1 = t3 t1b, m2 = t1b z3a, m3 = y3b t0b,
+// m4 = z3a t4, m5 = t0b t3.  X3 = m1 - m0, Y3 = m3 + m2, Z3 = m5 + m4.
+struct AddOp {
+  static constexpr int kInputs = 2, kProducts = 6, kDerived = 6;
+  __device__ static __forceinline__ void layer1(int k, const uint32_t* A, uint32_t (&x)[12],
+                                                uint32_t (&y)[12]) {
+    const int u = k < 3 ? k : (k == 4 ? 1 : 0), v = k == 3 ? 1 : 2;
+    uint32_t pu[12], pv[12], qu[12], qv[12], ps[12], qs[12];
+    sm_load(pu, A, u);
+    sm_load(pv, A, v);
+    sm_load(qu, A, 3 + u);
+    sm_load(qv, A, 3 + v);
+    fadd<BlsFp>(ps, pu, pv);
+    fadd<BlsFp>(qs, qu, qv);
+    select12(x, k >= 3, ps, pu);
+    select12(y, k >= 3, qs, qu);
   }
-  __syncwarp();
-  const int l = lane % S;
-  uint32_t* A = a_all + (lane / S) * kSplitStride;
-  uint32_t* B = b_all + (lane / S) * kSplitStride;
-  // slot s of this lane is product (or derived value) k = l + S s; a slot
-  // past 5 repeats 5 and is not stored
-  int ks[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) ks[s] = l + S * s < 6 ? l + S * s : 5;
-
-  // layer 1: t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2, s1 = (X1 + Y1)(X2 + Y2),
-  // s2 = (Y1 + Z1)(Y2 + Z2), s3 = (X1 + Z1)(X2 + Z2)
-  {
-    uint32_t x[K][12], y[K][12];
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const int k = ks[s];
-      const int u = k < 3 ? k : (k == 4 ? 1 : 0), v = k == 3 ? 1 : 2;
-      uint32_t pu[12], pv[12], qu[12], qv[12], ps[12], qs[12];
-      sm_load(pu, A, u);
-      sm_load(pv, A, v);
-      sm_load(qu, A, 3 + u);
-      sm_load(qv, A, 3 + v);
-      fadd<BlsFp>(ps, pu, pv);
-      fadd<BlsFp>(qs, qu, qv);
-      select12(x[s], k >= 3, ps, pu);
-      select12(y[s], k >= 3, qs, qu);
-    }
-#pragma unroll
-    for (int s = 0; s < K; ++s) fmul<BlsFp>(x[s], x[s], y[s]);
-#pragma unroll
-    for (int s = 0; s < K; ++s)
-      if (l + S * s < 6) sm_store(B, ks[s], x[s]);
-  }
-  __syncwarp();
-
-  // the second layer's operands, from B's t0, t1, t2, s1, s2, s3 (values
-  // 0-5), in one shape per pair of them:
-  //   D0 = t3 = s1 - (t0 + t1)          D1 = t4 = s2 - (t1 + t2)
-  //   D2 = y3b = b3 (s3 - (t0 + t2))    D3 = t0b = t0 + (t0 + t0)
-  //   D4 = z3a = t1 + b3 t2             D5 = t1b = t1 - b3 t2
-  // With S = 2 a slot holds one pair, so the warp takes one branch.
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    const int k = ks[s];
-    uint32_t x[12], y[12], d[12];
+  __device__ static __forceinline__ void derive(int k, const uint32_t* B, uint32_t (&d)[12]) {
+    uint32_t x[12], y[12];
     if (k < 2) {
       uint32_t z[12];
       sm_load(x, B, 3 + k);
@@ -208,21 +186,132 @@ __global__ void __launch_bounds__(32 * kSplitWarps) ec_add_split_kernel(const ui
       fsub<BlsFp>(dif, x, y);
       select12(d, k == 4, sum, dif);
     }
-    if (l + S * s < 6) sm_store(A, k, d);  // A's inputs are dead: read before the last sync
+  }
+  __host__ __device__ static constexpr int op_a(int k) {
+    return k == 0 ? 1 : k == 1 ? 0 : k == 2 ? 5 : k == 3 ? 2 : k == 4 ? 4 : 3;
+  }
+  __host__ __device__ static constexpr int op_b(int k) {
+    return k == 0 ? 2 : k == 1 ? 5 : k == 2 ? 4 : k == 3 ? 3 : k == 4 ? 1 : 0;
+  }
+  __device__ static __forceinline__ void finish(int c, const uint32_t* B, uint32_t (&r)[12]) {
+    uint32_t x[12], y[12], sum[12], dif[12];
+    sm_load(x, B, 2 * c + 1);
+    sm_load(y, B, 2 * c);
+    fadd<BlsFp>(sum, x, y);
+    fsub<BlsFp>(dif, x, y);
+    select12(r, c == 0, dif, sum);
+  }
+};
+
+// RCB15 Alg. 9, complete doubling (B3), in the reference's order.  A: p
+// (X, Y, Z) at values 0-2.  Layer 1: t0 = Y^2, t1 = Y Z, t2 = Z^2,
+// txy = X Y.  D, from B's t0, t1, t2, txy (values 0-3), a pair of them per
+// shape:
+//   D0 = t0b = t0 - 3 t2b, t2b = b3 t2      D1 = t2b
+//   D2 = z3 = 8 t0                          D3 = y3a = t0 + t2b
+//   D4 = txy                                D5 = t1
+// Layer 2: m0 = t0b txy, m1 = t2b z3, m2 = t0b y3a, m3 = t1 z3.
+// X3 = m0 + m0, Y3 = m1 + m2, Z3 = m3.
+struct DoubleOp {
+  static constexpr int kInputs = 1, kProducts = 4, kDerived = 6;
+  __device__ static __forceinline__ void layer1(int k, const uint32_t* A, uint32_t (&x)[12],
+                                                uint32_t (&y)[12]) {
+    sm_load(x, A, k == 3 ? 0 : (k == 2 ? 2 : 1));
+    sm_load(y, A, k == 0 || k == 3 ? 1 : 2);
+  }
+  __device__ static __forceinline__ void derive(int k, const uint32_t* B, uint32_t (&d)[12]) {
+    if (k < 4) {
+      uint32_t t0[12], t2b[12], u[12], v[12];
+      sm_load(t0, B, 0);
+      sm_load(t2b, B, 2);
+      BlsFp::mul_b3(t2b, t2b);
+      if (k < 2) {
+        fadd<BlsFp>(u, t2b, t2b);
+        fadd<BlsFp>(u, u, t2b);
+        fsub<BlsFp>(v, t0, u);
+        select12(d, k == 0, v, t2b);
+      } else {
+        fadd<BlsFp>(u, t0, t0);
+        fadd<BlsFp>(u, u, u);
+        fadd<BlsFp>(u, u, u);
+        fadd<BlsFp>(v, t0, t2b);
+        select12(d, k == 2, u, v);
+      }
+    } else {
+      sm_load(d, B, k == 4 ? 3 : 1);
+    }
+  }
+  __host__ __device__ static constexpr int op_a(int k) { return k == 0 ? 0 : k == 1 ? 1 : k == 2 ? 0 : 5; }
+  __host__ __device__ static constexpr int op_b(int k) { return k == 0 ? 4 : k == 1 ? 2 : k == 2 ? 3 : 2; }
+  __device__ static __forceinline__ void finish(int c, const uint32_t* B, uint32_t (&r)[12]) {
+    uint32_t x[12], y[12], sum[12];
+    sm_load(x, B, c == 0 ? 0 : (c == 1 ? 1 : 3));
+    sm_load(y, B, c == 0 ? 0 : 2);
+    fadd<BlsFp>(sum, x, y);
+    select12(r, c == 2, x, sum);
+  }
+};
+
+template <class Op, int S>
+__global__ void __launch_bounds__(32 * kSplitWarps) ec_split_kernel(const uint32_t* __restrict__ p,
+                                                                    const uint32_t* __restrict__ q,
+                                                                    uint32_t* __restrict__ out,
+                                                                    long long m) {
+  constexpr int NP = Op::kProducts;
+  constexpr int K = (NP + S - 1) / S;              // products per lane per layer
+  constexpr int KD = (Op::kDerived + S - 1) / S;   // D values per lane
+  constexpr int ITEMS = 32 / S;                    // items per warp
+  constexpr int IN = 36 * Op::kInputs;             // input words per item
+  __shared__ uint32_t smem[kSplitWarps][2][ITEMS * kSplitStride];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long item0 = ((long long)blockIdx.x * kSplitWarps + warp) * ITEMS;
+  if (item0 >= m) return;  // the whole warp
+  const int ni = m - item0 < ITEMS ? (int)(m - item0) : ITEMS;
+  uint32_t* a_all = smem[warp][0];
+  uint32_t* b_all = smem[warp][1];
+  for (int i = lane; i < ni * 36; i += 32) {
+    const int k = i / 36, w = i % 36;
+    a_all[k * kSplitStride + w] = p[(item0 + k) * 36 + w];
+    if (Op::kInputs == 2) a_all[k * kSplitStride + 36 + w] = q[(item0 + k) * 36 + w];
+  }
+  static_assert(IN <= kSplitStride && 12 * Op::kDerived <= kSplitStride, "an item's values exceed its slice");
+  __syncwarp();
+  const int l = lane % S;
+  uint32_t* A = a_all + (lane / S) * kSplitStride;
+  uint32_t* B = b_all + (lane / S) * kSplitStride;
+  // slot s of this lane is product k = l + S s; a slot past the last repeats
+  // the last and is not stored
+  int ks[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) ks[s] = l + S * s < NP ? l + S * s : NP - 1;
+
+  {
+    uint32_t x[K][12], y[K][12];
+#pragma unroll
+    for (int s = 0; s < K; ++s) Op::layer1(ks[s], A, x[s], y[s]);
+#pragma unroll
+    for (int s = 0; s < K; ++s) fmul<BlsFp>(x[s], x[s], y[s]);
+#pragma unroll
+    for (int s = 0; s < K; ++s)
+      if (l + S * s < NP) sm_store(B, ks[s], x[s]);
   }
   __syncwarp();
-
-  // layer 2: m0 = t4 y3b, m1 = t3 t1b, m2 = t1b z3a, m3 = y3b t0b,
-  // m4 = z3a t4, m5 = t0b t3
+#pragma unroll
+  for (int s = 0; s < KD; ++s) {
+    const int k = l + S * s < Op::kDerived ? l + S * s : Op::kDerived - 1;
+    uint32_t d[12];
+    Op::derive(k, B, d);
+    if (l + S * s < Op::kDerived) sm_store(A, k, d);  // A's inputs are dead: read before the last sync
+  }
+  __syncwarp();
   {
-    constexpr int ka[6] = {1, 0, 5, 2, 4, 3}, kb[6] = {2, 5, 4, 3, 1, 0};
     uint32_t x[K][12], y[K][12];
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       int ia = 0, ib = 0;
 #pragma unroll
-      for (int c = 0; c < 6; ++c)
-        if (ks[s] == c) { ia = ka[c]; ib = kb[c]; }
+      for (int c = 0; c < NP; ++c)
+        if (ks[s] == c) { ia = Op::op_a(c); ib = Op::op_b(c); }
       sm_load(x[s], A, ia);
       sm_load(y[s], A, ib);
     }
@@ -230,37 +319,28 @@ __global__ void __launch_bounds__(32 * kSplitWarps) ec_add_split_kernel(const ui
     for (int s = 0; s < K; ++s) fmul<BlsFp>(x[s], x[s], y[s]);
 #pragma unroll
     for (int s = 0; s < K; ++s)
-      if (l + S * s < 6) sm_store(B, ks[s], x[s]);
+      if (l + S * s < NP) sm_store(B, ks[s], x[s]);
   }
   __syncwarp();
-
-  // X3 = m1 - m0, Y3 = m3 + m2, Z3 = m5 + m4: coordinate c on lane c % S
+  // output coordinate c on lane c % S
 #pragma unroll
   for (int s = 0; s < (3 + S - 1) / S; ++s) {
     const int c = l + S * s < 3 ? l + S * s : 2;
-    uint32_t x[12], y[12], sum[12], dif[12], r[12];
-    sm_load(x, B, 2 * c + 1);
-    sm_load(y, B, 2 * c);
-    fadd<BlsFp>(sum, x, y);
-    fsub<BlsFp>(dif, x, y);
-    select12(r, c == 0, dif, sum);
+    uint32_t r[12];
+    Op::finish(c, B, r);
     if (l + S * s < 3) sm_store(A, c, r);
   }
   __syncwarp();
-  for (int i = lane; i < np * 36; i += 32) {
+  for (int i = lane; i < ni * 36; i += 32) {
     const int k = i / 36, w = i % 36;
-    out[(pair0 + k) * 36 + w] = a_all[k * kSplitStride + w];
+    out[(item0 + k) * 36 + w] = a_all[k * kSplitStride + w];
   }
 }
 
-__global__ void __launch_bounds__(128) ec_double_kernel(const uint32_t* __restrict__ p,
-                                                        uint32_t* __restrict__ out, long long m) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  G1 a;
-  load_point(a, p + i * 36);
-  point_double(a, a);
-  store_point(out + i * 36, a);
+template <class Op, int S>
+void launch_split(const uint32_t* p, const uint32_t* q, uint32_t* out, long long m, cudaStream_t st) {
+  constexpr unsigned threads = 32 * kSplitWarps;
+  ec_split_kernel<Op, S><<<(unsigned)((S * m + threads - 1) / threads), threads, 0, st>>>(p, q, out, m);
 }
 
 // out[b] = sum_j 2^j v[b, j] as acc = v[J-1]; acc = 2 acc + v[j] for
@@ -285,31 +365,24 @@ __global__ void __launch_bounds__(32) weighted_fold_kernel(const uint32_t* __res
 
 extern "C" int raiko_bls12_381_ec_add(const void* p, const void* q, void* out, long long m, int lanes,
                                       void* stream) {
+  using namespace raiko;
   if (m <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* pp = (const uint32_t*)p;
   const uint32_t* qq = (const uint32_t*)q;
   uint32_t* oo = (uint32_t*)out;
-  constexpr unsigned threads = 32 * raiko::kSplitWarps;
   switch (lanes) {
-    case 2:
-      raiko::ec_add_split_kernel<2><<<(unsigned)((2 * m + threads - 1) / threads), threads, 0, st>>>(pp, qq, oo, m);
-      break;
-    case 8:
-      raiko::ec_add_split_kernel<8><<<(unsigned)((8 * m + threads - 1) / threads), threads, 0, st>>>(pp, qq, oo, m);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 2: launch_split<AddOp, 2>(pp, qq, oo, m, st); break;
+    case 8: launch_split<AddOp, 8>(pp, qq, oo, m, st); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int raiko_bls12_381_ec_double(const void* p, void* out, long long m, void* stream) {
   if (m > 0) {
-    const int threads = 128;
-    const long long blocks = (m + threads - 1) / threads;
-    raiko::ec_double_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)p, (uint32_t*)out, m);
+    raiko::launch_split<raiko::DoubleOp, 4>((const uint32_t*)p, nullptr, (uint32_t*)out, m,
+                                            (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,7 @@
 // Montgomery field arithmetic over 32-bit limbs, one field element per
-// thread, and the complete short-Weierstrass (a = 0) doubling: kernel B1
-// runs these products and sums per lane (bls12_381_g1.cu), B3 the doubling
-// per thread.  The serial chains B2 and B4 run the same operations spread
-// over a warp (field32_coop.cuh).
+// thread: kernels B1 and B3 run these products and sums per lane
+// (bls12_381_g1.cu).  The serial chains B2 and B4 run the same operations
+// spread over a warp (field32_coop.cuh).
 //
 // A field element is N little-endian 32-bit limbs held in registers.  The
 // Montgomery radix is R = 2^(32N), which equals the public layout's
@@ -183,60 +182,6 @@ __device__ __forceinline__ void fmul(uint32_t (&r)[Fd::N], const uint32_t (&a)[F
 #pragma unroll
   for (int j = 0; j < N; ++j) lo[j] = t[j];
   reduce_once<Fd>(r, lo, t[N]);
-}
-
-template <class Fd>
-struct Point {
-  uint32_t x[Fd::N], y[Fd::N], z[Fd::N];
-};
-
-// (x, y, z) = P[i] from a contiguous (M, 3, N) array of 32-bit limbs.
-template <class Fd>
-__device__ __forceinline__ void load_point(Point<Fd>& p, const uint32_t* src) {
-#pragma unroll
-  for (int j = 0; j < Fd::N; ++j) {
-    p.x[j] = src[j];
-    p.y[j] = src[Fd::N + j];
-    p.z[j] = src[2 * Fd::N + j];
-  }
-}
-
-template <class Fd>
-__device__ __forceinline__ void store_point(uint32_t* dst, const Point<Fd>& p) {
-#pragma unroll
-  for (int j = 0; j < Fd::N; ++j) {
-    dst[j] = p.x[j];
-    dst[Fd::N + j] = p.y[j];
-    dst[2 * Fd::N + j] = p.z[j];
-  }
-}
-
-// Complete projective doubling, RCB15 Alg. 9 (a = 0); the same field
-// values as the reference's double.  r may alias p.
-template <class Fd>
-__device__ __forceinline__ void point_double(Point<Fd>& r, const Point<Fd>& p) {
-  constexpr int N = Fd::N;
-  uint32_t t0[N], t1[N], t2[N], txy[N], z3[N], u[N];
-  fmul<Fd>(t0, p.y, p.y);
-  fmul<Fd>(t1, p.y, p.z);
-  fmul<Fd>(t2, p.z, p.z);
-  fmul<Fd>(txy, p.x, p.y);
-  fadd<Fd>(z3, t0, t0);
-  fadd<Fd>(z3, z3, z3);
-  fadd<Fd>(z3, z3, z3);  // 8 Y^2
-  Fd::mul_b3(t2, t2);  // t2b = b3 Z^2
-  fadd<Fd>(u, t2, t2);
-  fadd<Fd>(u, u, t2);  // 3 t2b
-  uint32_t y3a[N];
-  fadd<Fd>(y3a, t0, t2);  // y3a = t0 + t2b
-  fsub<Fd>(t0, t0, u);  // t0b = t0 - 3 t2b
-  // X3 = 2 t0b txy ; Y3 = t2b z3 + t0b y3a ; Z3 = t1 z3
-  fmul<Fd>(u, t0, txy);
-  fadd<Fd>(r.x, u, u);
-  fmul<Fd>(u, t2, z3);
-  fmul<Fd>(t2, t0, y3a);
-  fadd<Fd>(r.y, u, t2);
-  fmul<Fd>(r.z, t1, z3);
 }
 
 }  // namespace raiko

@@ -193,8 +193,8 @@ struct CPoint {
   uint32_t x, y, z;
 };
 
-// Complete doubling, RCB15 Alg. 9 (a = 0): field32.cuh's point_double,
-// value for value, its 8 products in two layers of 4.
+// Complete doubling, RCB15 Alg. 9 (a = 0): DoubleOp's in
+// bls12_381_g1.cu, value for value, its 8 products in two layers of 4.
 template <class Fd, int W>
 __device__ __forceinline__ CPoint c_double(const Lanes<Fd, W>& L, const CPoint& p) {
   uint32_t t[4];

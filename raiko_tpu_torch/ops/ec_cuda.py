@@ -15,6 +15,8 @@ B1 runs each pair on a group of lanes that split the addition's two layers
 of six products: 8 lanes per pair (two products deep, 64 registers) where a
 launch is below one wave and its time is one addition's latency, 2 lanes
 per pair (no lane idle, 80 registers) where the multiply rate bounds it.
+B3 runs each point the same way over the doubling's two layers of four
+products, on 4 lanes (two products deep, 56 registers).
 """
 
 from __future__ import annotations

@@ -136,12 +136,85 @@ def test_ntt_mxu_tables_match_jax(log_m):
     np.testing.assert_array_equal(mine, jmxu._dft_matrix_limbs(log_m))
     assert ntt_mxu._recombine_consts(1 << log_m) == jmxu._recombine_consts(1 << log_m)
     assert ntt_mxu._OFFSET == jmxu._OFFSET
-    # the kernel's packed words hold the same digits, byte t of word (k, g, i)
+    # the kernel's packed A fragments hold the same digits
+    np.testing.assert_array_equal(_unpack_fragments(ntt_mxu_cuda._packed_matrix(log_m))[:, :1 << log_m, :1 << log_m],
+                                  mine)
+
+
+def _unpack_fragments(packed: np.ndarray) -> np.ndarray:
+    """(4, 16 KB, 32 KC) int8 digit matrices from the (KB, KC, 4, 32, 4)
+    int32 A fragments, by the layout csrc/babybear_ntt_mxu.cu documents
+    (the m16n8k32 s8 A operand of the PTX ISA): word [kb, kc, i, lane, r],
+    lane = 4 g + t, holds W_i[16 kb + g + 8 (r & 1), 32 kc + 16 (r >> 1) +
+    4 t + b] in byte b."""
+    kbs, kcs = packed.shape[:2]
+    out = np.full((4, 16 * kbs, 32 * kcs), 99, dtype=np.int8)
+    for (kb, kc, i, lane, r), word in np.ndenumerate(packed):
+        g, t = lane >> 2, lane & 3
+        col = 32 * kc + 16 * (r >> 1) + 4 * t
+        out[i, 16 * kb + g + 8 * (r & 1), col : col + 4] = np.array([word], dtype="<i4").view(np.int8)
+    return out
+
+
+@pytest.mark.parametrize("log_m", range(1, 8))
+def test_ntt_mxu_packed_fragments_unpack_to_the_digits(log_m):
     m = 1 << log_m
-    packed = ntt_mxu_cuda._packed_matrix(log_m).view(np.int8).reshape(m, -1, 4, 4)
-    for k in range(0, m, max(1, m // 4)):
-        for j in range(m):
-            np.testing.assert_array_equal(packed[k, j // 4, :, j % 4], mine[:, k, j])
+    packed = ntt_mxu_cuda._packed_matrix(log_m)
+    assert packed.dtype == np.int32 and packed.shape == (-(-m // 16), -(-m // 32), 4, 32, 4)
+    full = _unpack_fragments(packed)
+    np.testing.assert_array_equal(full[:, :m, :m], jmxu._dft_matrix_limbs(log_m))
+    full[:, :m, :m] = 0
+    assert not full.any()  # zero past M x M, every byte written once
+
+
+def _recombine_model(sums: torch.Tensor) -> torch.Tensor:
+    """csrc/babybear_ntt_mxu.cu's reduction of the seven diagonal sums, in
+    torch: (7, ...) int64 S_s, |S_s| <= 2^23 -> sum_s S_s 2^(8s) mod p,
+    canonical, by one Montgomery step on V = p 2^26 + sum_s S_s b_s with
+    b_s = 2^(8s) 2^32 mod p (0 < V < p 2^32)."""
+    p = jbb.P
+    v = (p << 26) + sum(sums[s] * pow(2, 32 + 8 * s, p) for s in range(7))
+    m = ((v & 0xFFFFFFFF) * ((-pow(p, -1, 1 << 32)) % (1 << 32))) & 0xFFFFFFFF
+    t = (v + m * p) >> 32  # < 2p; v + m p < 2^63
+    return torch.where(t >= p, t - p, t)
+
+
+def test_ntt_mxu_recombine_model_matches_formula():
+    """The kernel's reduction (one Montgomery step on p 2^26 + sum_s S_s b_s)
+    equals the reference's sum_s mont_mul(S_s + 2^23, 2^(8s) R) - K over
+    random sums and at the edges +-2^23."""
+    edge = 1 << 23
+    rng = np.random.default_rng(12)
+    sums = rng.integers(-edge, edge + 1, (7, 4000))
+    # every S_s at +-2^23 or 0, alternating in sign, and one extreme at a time
+    for col, v in enumerate((edge, -edge, 0, edge - 1, -edge + 1)):
+        sums[:, col] = v
+    sums[:, 5] = [edge, -edge] * 3 + [edge]
+    sums[:, 6] = [-edge, edge] * 3 + [-edge]
+    for s in range(7):
+        sums[:, 7 + 2 * s : 9 + 2 * s] = 0
+        sums[s, 7 + 2 * s], sums[s, 8 + 2 * s] = edge, -edge
+    sums = torch.as_tensor(sums)
+    got = _recombine_model(sums)
+    bs, k_const = jmxu._recombine_consts(64)
+    want = None
+    for s in range(7):
+        term = jbb.mont_mul(jnp.asarray((sums[s] + ntt_mxu._OFFSET).numpy().astype(np.uint32)), jnp.uint32(bs[s]))
+        want = term if want is None else jbb.add(want, term)
+    want = np.asarray(jbb.sub(want, jnp.uint32(k_const)))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    direct = [sum(int(v) << (8 * s) for s, v in enumerate(col)) % jbb.P for col in sums.T.tolist()[:50]]
+    assert got[:50].tolist() == direct
+
+
+def test_ntt_mxu_kernel_digit_words_are_balanced_limbs():
+    """The kernel's digits of v < p, the bytes of (v + 0x80808080) ^
+    0x80808080 read as int8, are the reference's balanced limbs."""
+    vals = [0, 1, 127, 128, 255, 256, 0x7F7F7F, 0x7780FF80, jbb.P - 1]
+    vals += np.random.default_rng(13).integers(0, jbb.P, 500).tolist()
+    words = ((np.array(vals, dtype=np.uint64) + 0x80808080) & 0xFFFFFFFF).astype(np.uint32) ^ np.uint32(0x80808080)
+    digits = words.astype("<u4").view(np.int8).reshape(-1, 4)
+    np.testing.assert_array_equal(digits, [jmxu._balanced_limbs_int(v) for v in vals])
 
 
 def test_balanced_limbs_match_jax():
@@ -288,12 +361,27 @@ def test_ec_double_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_n", [0, 1, 2, 5, 7, 12, 14])
+@pytest.mark.parametrize("m", [1, 5, 33, 4099, 8192, 8193, 16389])
+def test_ec_double_widths_match_plain_on_card(cuda_device, m):
+    """Widths that are no multiple of a warp's 8 points or a block's 32, and
+    8,192 and one past it: Z = 1, Z != 1 and identities (_g1_points' rows
+    repeated)."""
+    base = convert.pack32(torch.as_tensor(_g1_points(33)[0]))
+    pts = base[torch.as_tensor(np.random.default_rng(m).integers(0, base.shape[0], m))].contiguous()
+    assert torch.equal(ec_cuda.ec_double(pts.to(cuda_device)).cpu(), ec_cuda.ec_double_plain(pts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", range(15))
 def test_ntt_mxu_kernel_matches_plain_on_card(cuda_device, log_n):
+    """Every size, against the plain version and (from 2^1) B5's ntt."""
+    from raiko_tpu_torch.ops import ntt_cuda
+
     x = convert.words_from_numpy(_mont(log_n, (5, 1 << log_n)), "cpu")
     got = ntt_mxu.ntt_mxu(x.to(cuda_device))
     assert torch.equal(got.cpu(), ntt_mxu.ntt_mxu_plain(x))
     if log_n:
+        assert torch.equal(got, ntt_cuda.ntt(x.to(cuda_device)))
         with pytest.raises(ValueError):
             ntt_mxu.ntt_mxu(x.to(cuda_device).T.contiguous().T)
 
