@@ -49,7 +49,12 @@ prints one JSON line; any failure raises and exits non-zero.
    messages of 32-532 bytes, sha256_batch over 8,192 48-byte commitments
    and 1,024 messages of 0-299 bytes; then each kernel against its plain
    version, bit for bit, with both times and its bound, and the digests
-   against the host's.  B3 also at 256, 4,096, 16,384 and 131,072 points
+   against the host's.  Keccak-f (also at 131,072 states) and SHA-256
+   (also at 131,072 commitments) are timed as CUDA graphs, event means
+   beside them, with the layout each width ran in and the longest
+   dependent chain beside the bound; both in every layout at 1 to 40,961
+   items, ragged and equal block counts, and at the padding edges (one
+   ``kernel_edges`` line each).  B3 also at 256, 4,096, 16,384 and 131,072 points
    (CUDA graphs, event means beside them) and at M = 1, 5, 33 and 4,099;
    B6 also equal to B5's ntt at both shapes, timed as CUDA graphs beside
    B5 and beside torch._int_mm of its two stacked digit products (the
@@ -138,6 +143,8 @@ KECCAK_ROWS, KECCAK_COLS = 1024, 4160  # provers/tpu_stark.py:323, stark/airs/ke
 # B1's launch widths in a served blob MSM: the bucket sums' tree levels run
 # about 63,000 down to 80 pairs, the combine 16,384 down to 256
 B1_WIDTHS = (256, 1024, 4096, 16384, 65536, 131072)
+# Keccak-f and SHA-256 at a full card: 4,096 warps of one thread an item
+HASH_WIDE = 131072
 B3_WIDTHS = (256, 4096, 16384, 131072)  # B3's timed widths
 SOURCES = {
     "ec_add": ("raiko_tpu_torch/csrc/bls12_381_g1.cu", "raiko_tpu/ops/ec_pallas.py:244"),
@@ -246,6 +253,12 @@ class Card:
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.imad_per_s = self.sms * IMAD_PER_SM_PER_CLOCK * max_sm_mhz * 1e6
         self.logic_per_s = self.sms * LOGIC_PER_SM_PER_CLOCK * max_sm_mhz * 1e6
+        self.hz = max_sm_mhz * 1e6
+
+    def chain_ms(self, dependent: float, exchanges: float = 0.0) -> float:
+        """Milliseconds of a dependent chain of `dependent` integer
+        instructions and `exchanges` warp shuffles at the maximum SM clock."""
+        return (dependent * DEPENDENT_CLOCKS + exchanges * SHFL_CLOCKS) / self.hz * 1e3
 
     def bound(self, nbytes: float, mults: float, int8_macs: float = 0.0,
               logic: float = 0.0) -> tuple[float, str]:
@@ -393,6 +406,18 @@ PERM_MULS = BB_MUL * ((8 * 16 * 4) + 13 * (4 + 16))  # Poseidon2: 772 products
 # no offset is 32); chi's a ^ (~b & c) one LOP3 per lane (50); iota (2):
 # 180 a round, 90 per 64-bit lane word.
 KECCAK_PERM_OPS = 24 * (2 * 2 * 5 + 2 * 5 + 2 * 25 + 2 * 24 + 2 * 25 + 2)
+# Clocks from one instruction to the next that depends on it, on an NVIDIA
+# H100 80GB HBM3 at 700 W (tools/time_hashes.py's probe): LOP3, SHF
+# and IADD3 about 4.6, SHFL 24.5
+DEPENDENT_CLOCKS, SHFL_CLOCKS = 4.56, 24.5
+# A permutation's longest dependent path: per round theta's column parity
+# (2 LOP3), its rotation by 1 (SHF), the XOR with D (LOP3), rho (SHF), chi
+# (LOP3) and iota (LOP3); the pair layout adds two exchanges a round
+# (theta's rotation and an odd rho offset swap the halves)
+KECCAK_CHAIN, KECCAK_PAIR_EXCHANGES = 24 * 7, 24 * 2
+# SHA-256 per block, the e-path of each round: Σ1's rotations (SHF) and
+# their LOP3, t1 (IADD3), e = d + t1
+SHA_CHAIN = 64 * 4
 # SHA-256 per block: 64 rounds of 14 (Σ1 and Σ0 each 3 rotations and a
 # LOP3, Ch and Maj a LOP3 each, t1 = h + Σ1 + Ch + K + W two IADD3,
 # e = d + t1 and a = t1 + Σ0 + Maj one each), 48 schedule words of 10 (σ0
@@ -713,6 +738,10 @@ def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
     # 2,048 pairs of digests
     left, right = (convert.words_from_numpy(bb.np_to_mont(rng.integers(0, bb.P, (2048, p2.OUT), dtype=np.uint32)),
                                             "cuda") for _ in range(2))
+    # the full card's widths, timed after the counted run: 131,072 states and
+    # 131,072 48-byte commitments
+    kstate_wide = convert.words_from_numpy(rng.integers(0, 1 << 32, (HASH_WIDE, 25, 2), dtype=np.uint32), "cuda")
+    commitments_wide = [rng.bytes(48) for _ in range(HASH_WIDE)]
 
     torch.cuda.synchronize()
     kernels.LAUNCHES.reset()
@@ -792,12 +821,23 @@ def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
             cases.append((f"3x2^{log_n} B5", got, ntt_cuda.ntt(x)))
     check_edges("ntt_mxu", cases)
 
-    want, plain_ms = once_ms(lambda: keccak.keccak_f1600_plain(kstate))
-    ms = cuda_ms(lambda: keccak.keccak_f1600_batch(kstate), 20)
-    check_kernel(card, results, "keccak_f1600", [8192, 25, 2], permuted, want, plain_ms, ms,
-                 nbytes=2 * 8192 * 200, mults=0, logic=8192 * KECCAK_PERM_OPS)
+    # Keccak-f and SHA-256: the card's time per call as a CUDA graph (their
+    # launches are shorter than the host's cost per call), the event mean
+    # beside it, the layout the width ran in and the longest dependent chain
+    # beside the bound
+    def perm_case(st, got, record):
+        b = st.shape[0]
+        want, plain_ms = once_ms(lambda: keccak.keccak_f1600_plain(st))
+        fn = lambda: keccak.keccak_f1600_batch(st)
+        # one permutation runs on a pair of lanes at every width
+        check_kernel(card, results, "keccak_f1600", [b, 25, 2], got, want, plain_ms, graph_ms(fn, 20),
+                     nbytes=2 * b * 200, mults=0, logic=b * KECCAK_PERM_OPS, record=record,
+                     events_ms=cuda_ms(fn, 20), lanes=2, chain_ms=card.chain_ms(KECCAK_CHAIN, KECCAK_PAIR_EXCHANGES))
 
-    def hash_case(name, msgs, digests, host, pack, blocks_fn, plain_fn, block_bytes, block_ops, record):
+    perm_case(kstate, permuted, True)
+    perm_case(kstate_wide, keccak.keccak_f1600_batch(kstate_wide), False)
+
+    def hash_case(name, msgs, digests, host, pack, blocks_fn, plain_fn, block_bytes, block_ops, record, **extra):
         """The kernel behind a batch hash on the batch's own blocks, against
         the plain version; the entry point's digests against the host's."""
         words, counts = pack(msgs)
@@ -805,25 +845,98 @@ def phase_ops(card: Card, setup32) -> tuple[dict, dict]:
         cnt = torch.as_tensor(counts, device="cuda")
         got = blocks_fn(w, cnt)
         want, plain_ms = once_ms(lambda: plain_fn(w, cnt))
-        ms = cuda_ms(lambda: blocks_fn(w, cnt), 20)
+        fn = lambda: blocks_fn(w, cnt)
         host_equal = digests == [host(msg) for msg in msgs]
         nblocks = int(counts.sum())
-        check_kernel(card, results, name, [len(msgs), words.shape[1]], got, want, plain_ms, ms,
+        check_kernel(card, results, name, [len(msgs), words.shape[1]], got, want, plain_ms, graph_ms(fn, 20),
                      nbytes=nblocks * block_bytes + len(msgs) * (4 + 32), mults=0,
-                     logic=nblocks * block_ops, record=record, blocks=nblocks, host_equal=host_equal)
+                     logic=nblocks * block_ops, record=record, events_ms=cuda_ms(fn, 20), blocks=nblocks,
+                     host_equal=host_equal, **{k: v(int(counts.max())) for k, v in extra.items()})
         if not host_equal:
             raise AssertionError(f"{name}: the card's digests differ from the host's")
 
+    lanes = keccak_cuda.absorb_lanes(len(nodes))
     hash_case("keccak_f1600", nodes, node_digests, native.keccak256, keccak.pack_ragged,
               keccak_cuda.keccak256_blocks, keccak.keccak256_blocks_plain, keccak.RATE, KECCAK_PERM_OPS + 34,
-              record=False)
+              record=False, lanes=lambda _: lanes,
+              chain_ms=lambda most: most * card.chain_ms(KECCAK_CHAIN, KECCAK_PAIR_EXCHANGES * (lanes == 2)))
     sha_blocks = lambda w, cnt: sha256_cuda.sha256_compress(None, w, cnt)
     sha_plain = lambda w, cnt: sha256.sha256_blocks_plain(None, w, cnt)
     sha_host = lambda msg: hashlib.sha256(msg).digest()
-    for msgs, digests, record in ((commitments, versioned, True), (mixed, mixed_digests, False)):
+    for msgs, digests, record in ((commitments, versioned, True),
+                                  (commitments_wide, sha256.sha256_batch(commitments_wide, "cuda"), False),
+                                  (mixed, mixed_digests, False)):
         hash_case("sha256_compress", msgs, digests, sha_host, sha256.pack_ragged, sha_blocks, sha_plain,
-                  64, SHA_BLOCK_OPS, record=record)
+                  64, SHA_BLOCK_OPS, record=record,
+                  layout=lambda most, b=len(msgs): sha256_cuda.compress_layout(b, most),
+                  chain_ms=lambda most: most * card.chain_ms(SHA_CHAIN))
+    check_hash_edges(rng)
     return results, {k: launches[k] for k in OPS}
+
+
+def check_hash_edges(rng) -> None:
+    """Keccak-f (one permutation on its pair of lanes, absorbing in both
+    layouts) and SHA-256 in every layout at widths that are no multiple of a
+    warp or a pair (1 to 16,385, and 40,961, where one thread a message
+    orders by block count): absorbing ragged
+    counts (0, T and above T, which the kernels clamp, among them) and
+    equal counts, against their plain versions; and messages at the padding
+    edges (Keccak 0-543 bytes about the 136-byte rate, SHA-256 0-299 about
+    55, 56 and 64) against the host's hashes."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from raiko_tpu_torch import convert
+    from raiko_tpu_torch.ops import keccak, keccak_cuda, sha256, sha256_cuda
+    from raiko_tpu_torch.utils import native
+
+    words = lambda shape: convert.words_from_numpy(rng.integers(0, 1 << 32, shape, dtype=np.uint32), "cuda")
+
+    def ragged(b: int, most: int, t: int) -> torch.Tensor:
+        counts = rng.integers(1, most + 1, b).astype(np.int32)
+        counts[::7], counts[3::11], counts[5::13] = 0, t, t + 3
+        return torch.as_tensor(counts, device="cuda")
+
+    kcases, scases = [], []
+    for b in (1, 2, 31, 33, 4099, 16385, 40961):
+        st, kblk, sblk, sst = words((b, 25, 2)), words((b, 5, 34)), words((b, 6, 16)), words((b, 8))
+        kcnt, scnt = ragged(b, 4, 5), ragged(b, 5, 6)
+        equal = torch.full((b,), 3, dtype=torch.int32, device="cuda")
+        kwant = (keccak.keccak_f1600_plain(st), keccak.keccak256_blocks_plain(kblk, kcnt),
+                 keccak.keccak256_blocks_plain(kblk, equal))
+        kcases.append((f"B={b}", keccak_cuda.keccak_f1600(st), kwant[0]))
+        for lanes in keccak_cuda.LANE_CHOICES:
+            kcases += [(f"B={b} lanes={lanes} ragged", keccak_cuda.keccak256_blocks_lanes(kblk, kcnt, lanes), kwant[1]),
+                       (f"B={b} lanes={lanes} equal", keccak_cuda.keccak256_blocks_lanes(kblk, equal, lanes), kwant[2])]
+        swant = (sha256.sha256_blocks_plain(None, sblk, scnt), sha256.sha256_blocks_plain(sst, sblk, scnt),
+                 sha256.sha256_blocks_plain(None, sblk, equal))
+        for layout in sha256_cuda.LAYOUTS:
+            scases += [(f"B={b} {layout} ragged", sha256_cuda.sha256_compress_layout(None, sblk, scnt, layout), swant[0]),
+                       (f"B={b} {layout} state", sha256_cuda.sha256_compress_layout(sst, sblk, scnt, layout), swant[1]),
+                       (f"B={b} {layout} equal", sha256_cuda.sha256_compress_layout(None, sblk, equal, layout),
+                        swant[2])]
+    kmsgs = [rng.bytes(n) for n in (0, 1, 135, 136, 137, 271, 272, 407, 408, 543)]
+    smsgs = [rng.bytes(n) for n in (0, 1, 55, 56, 63, 64, 119, 120, 183, 184, 247, 248, 299)]
+    kw, kc = keccak.pack_ragged(kmsgs)
+    sw, sc = sha256.pack_ragged(smsgs)
+    kw, kc = convert.words_from_numpy(kw, "cuda"), torch.as_tensor(kc, device="cuda")
+    sw, sc = convert.words_from_numpy(sw, "cuda"), torch.as_tensor(sc, device="cuda")
+    for lanes in keccak_cuda.LANE_CHOICES:
+        got = keccak_cuda.keccak256_blocks_lanes(kw, kc, lanes)
+        kcases.append((f"padding lanes={lanes}", got, keccak.keccak256_blocks_plain(kw, kc)))
+        raw = got.cpu().numpy().astype("<i4").tobytes()
+        if [raw[32 * i : 32 * i + 32] for i in range(len(kmsgs))] != [native.keccak256(m) for m in kmsgs]:
+            raise AssertionError(f"keccak_f1600 ({lanes} lanes) differs from the host's Keccak-256 at the padding edges")
+    for layout in sha256_cuda.LAYOUTS:
+        got = sha256_cuda.sha256_compress_layout(None, sw, sc, layout)
+        scases.append((f"padding {layout}", got, sha256.sha256_blocks_plain(None, sw, sc)))
+        raw = got.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+        if [raw[32 * i : 32 * i + 32] for i in range(len(smsgs))] != [hashlib.sha256(m).digest() for m in smsgs]:
+            raise AssertionError(f"sha256_compress ({layout}) differs from hashlib at the padding edges")
+    check_edges("keccak_f1600", kcases)
+    check_edges("sha256_compress", scases)
 
 
 def phase_stark() -> dict:

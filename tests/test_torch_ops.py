@@ -321,8 +321,216 @@ def test_sha256_pack_messages_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# models of the hash kernels' designs (csrc/keccak_f1600.cu, csrc/sha256.cu)
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def _byte_perm(a: torch.Tensor, b, sel: int) -> torch.Tensor:
+    """__byte_perm(a, b, sel) on int64 tensors holding u32 words."""
+    b = torch.as_tensor(b, dtype=torch.int64).expand_as(a)
+    out = torch.zeros_like(a)
+    for k in range(4):
+        idx = (sel >> (4 * k)) & 7
+        src = a if idx < 4 else b
+        out |= ((src >> (8 * (idx & 3))) & 0xFF) << (8 * k)
+    return out
+
+
+def _unzip(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's unzip: even bits to the low half, odd to the high."""
+    for s, m in ((1, 0x22222222), (2, 0x0C0C0C0C), (4, 0x00F000F0)):
+        t = (x ^ (x >> s)) & m
+        x = x ^ t ^ ((t << s) & M32)
+    return _byte_perm(x, 0, 0x3120)
+
+
+def _zip(x: torch.Tensor) -> torch.Tensor:
+    x = _byte_perm(x, 0, 0x3120)
+    for s, m in ((4, 0x00F000F0), (2, 0x0C0C0C0C), (1, 0x22222222)):
+        t = (x ^ (x >> s)) & m
+        x = x ^ t ^ ((t << s) & M32)
+    return x
+
+
+def _interleave(lo: torch.Tensor, hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A pair's load: the even lane holds lo, the odd lane hi; each unzips
+    its word and joins it with its partner's by its selector."""
+    u_even, u_odd = _unzip(lo), _unzip(hi)
+    return _byte_perm(u_even, u_odd, 0x5410), _byte_perm(u_odd, u_even, 0x3276)
+
+
+def _deinterleave(even: torch.Tensor, odd: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _zip(_byte_perm(even, odd, 0x5410)), _zip(_byte_perm(odd, even, 0x3276))
+
+
+def _rotl32(x: torch.Tensor, n: int) -> torch.Tensor:
+    n %= 32  # the funnel shift's amount wraps
+    return x if n == 0 else ((x << n) & M32) | (x >> (32 - n))
+
+
+def _rot_pair(even: torch.Tensor, odd: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """rotl64 by n on interleaved halves: by 2k each half by k; by 2k + 1
+    the halves swap, the even lane taking rotl32(odd, k + 1)."""
+    if n % 2 == 0:
+        return _rotl32(even, n // 2), _rotl32(odd, n // 2)
+    return _rotl32(odd, n // 2 + 1), _rotl32(even, n // 2)
+
+
+def _pair_rc() -> tuple[list, list]:
+    rc = torch.as_tensor(keccak._RC_ARR)
+    even, odd = _interleave(rc[:, 0], rc[:, 1])
+    return even.tolist(), odd.tolist()
+
+
+def _keccak_pair_model(even: list, odd: list) -> tuple[list, list]:
+    """Keccak-f[1600] as the pair layout runs it: 25 (B,) int64 words a
+    lane of the pair, 24 rounds on interleaved halves."""
+    rc_even, rc_odd = _pair_rc()
+    rho = keccak._RHO_VEC.tolist()
+    for r in range(24):
+        ce = [even[x] ^ even[x + 5] ^ even[x + 10] ^ even[x + 15] ^ even[x + 20] for x in range(5)]
+        co = [odd[x] ^ odd[x + 5] ^ odd[x + 10] ^ odd[x + 15] ^ odd[x + 20] for x in range(5)]
+        for x in range(5):
+            de, do = _rot_pair(ce[(x + 1) % 5], co[(x + 1) % 5], 1)
+            for y in range(5):
+                even[x + 5 * y] = even[x + 5 * y] ^ ce[(x + 4) % 5] ^ de
+                odd[x + 5 * y] = odd[x + 5 * y] ^ co[(x + 4) % 5] ^ do
+        be, bo = [None] * 25, [None] * 25
+        for x in range(5):
+            for y in range(5):
+                j = y + 5 * ((2 * x + 3 * y) % 5)
+                be[j], bo[j] = _rot_pair(even[x + 5 * y], odd[x + 5 * y], rho[x + 5 * y])
+        for y in range(5):
+            for x in range(5):
+                i1, i2 = (x + 1) % 5 + 5 * y, (x + 2) % 5 + 5 * y
+                even[x + 5 * y] = be[x + 5 * y] ^ (~be[i1] & be[i2] & M32)
+                odd[x + 5 * y] = bo[x + 5 * y] ^ (~bo[i1] & bo[i2] & M32)
+        even[0] = even[0] ^ rc_even[r]
+        odd[0] = odd[0] ^ rc_odd[r]
+    return even, odd
+
+
+def _pair_permute(words: np.ndarray) -> np.ndarray:
+    """(B, 25, 2) u32 lo/hi words through the pair model -> the same layout."""
+    u = torch.as_tensor(words.astype(np.int64))
+    pairs = [_interleave(u[:, q, 0], u[:, q, 1]) for q in range(25)]
+    even, odd = _keccak_pair_model([p[0] for p in pairs], [p[1] for p in pairs])
+    out = [_deinterleave(e, o) for e, o in zip(even, odd)]
+    return torch.stack([torch.stack(p, dim=1) for p in out], dim=1).numpy().astype(np.uint32)
+
+
+def test_keccak_pair_model_matches_plain_and_jax():
+    state = np.random.default_rng(12).integers(0, 1 << 32, (8, 25, 2), dtype=np.uint32)
+    state[0] = 0
+    state[1] = M32
+    got = _pair_permute(state)
+    np.testing.assert_array_equal(got, _u32(keccak.keccak_f1600_plain(convert.words_from_numpy(state, "cpu"))))
+    np.testing.assert_array_equal(got, np.asarray(jax.jit(jkeccak.keccak_f1600_batch)(jnp.asarray(state))))
+
+
+def test_keccak_pair_model_absorbs_like_the_host():
+    """The pair layout's absorb: each rate block interleaved and XORed into
+    the state, then the permutation; the digest de-interleaved."""
+    words, counts = keccak.pack_ragged(KECCAK_MSGS)
+    w = torch.as_tensor(words.astype(np.int64)).reshape(len(KECCAK_MSGS), -1, 17, 2)
+    zero = torch.zeros(len(KECCAK_MSGS), dtype=torch.int64)
+    even, odd = [zero] * 25, [zero] * 25
+    for t in range(words.shape[1]):
+        ne, no = list(even), list(odd)
+        for q in range(17):
+            be, bo = _interleave(w[:, t, q, 0], w[:, t, q, 1])
+            ne[q], no[q] = ne[q] ^ be, no[q] ^ bo
+        ne, no = _keccak_pair_model(ne, no)
+        live = torch.as_tensor(counts) > t
+        even = [torch.where(live, n, c) for n, c in zip(ne, even)]
+        odd = [torch.where(live, n, c) for n, c in zip(no, odd)]
+    lanes = [torch.stack(_deinterleave(even[q], odd[q]), dim=1) for q in range(4)]
+    raw = torch.cat(lanes, dim=1).numpy().astype("<u4").tobytes()
+    assert [raw[32 * i : 32 * i + 32] for i in range(len(KECCAK_MSGS))] == [keccak_host(m) for m in KECCAK_MSGS]
+
+
+def test_keccak_pair_round_constants_are_the_models():
+    even, odd = _pair_rc()
+    table = keccak_cuda._round_constants(torch.device("cpu"), 2)
+    np.testing.assert_array_equal(_u32(table), np.array([even, odd], dtype=np.uint32).T)
+    np.testing.assert_array_equal(_u32(keccak_cuda._round_constants(torch.device("cpu"), 1)),
+                                  keccak._RC_ARR.astype(np.uint32))
+
+
+@pytest.mark.parametrize("kind", ["random", "single_bit"])
+def test_keccak_interleave_round_trip(kind):
+    if kind == "random":
+        v = np.random.default_rng(13).integers(0, 1 << 64, 4096, dtype=np.uint64)
+    else:
+        v = np.uint64(1) << np.arange(64, dtype=np.uint64)
+    lo = torch.as_tensor((v & np.uint64(M32)).astype(np.int64))
+    hi = torch.as_tensor((v >> np.uint64(32)).astype(np.int64))
+    even, odd = _interleave(lo, hi)
+    bits = (v[:, None] >> np.arange(64, dtype=np.uint64)) & np.uint64(1)
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    np.testing.assert_array_equal(even.numpy(), (bits[:, 0::2] * weights).sum(axis=1).astype(np.int64))
+    np.testing.assert_array_equal(odd.numpy(), (bits[:, 1::2] * weights).sum(axis=1).astype(np.int64))
+    back_lo, back_hi = _deinterleave(even, odd)
+    assert torch.equal(back_lo, lo) and torch.equal(back_hi, hi)
+    assert torch.equal(_zip(_unzip(lo)), lo)
+
+
+SHA_EDGE_LENGTHS = [0, 1, 55, 56, 63, 64, 119, 120, 183, 184, 247, 248, 299]
+
+
+def _sha_schedule_first_model(blocks: np.ndarray, counts: np.ndarray) -> torch.Tensor:
+    """SHA-256 as the split layout runs it: every block's K + W computed
+    first (the schedule warp), then the rounds on K + W alone (the round
+    warp), each message over its own count of blocks -> (B, 8) int32."""
+    rotr = lambda x, n: (x >> n) | ((x << (32 - n)) & M32)
+    w = [torch.as_tensor(blocks[:, :, q].astype(np.int64)) for q in range(16)]  # (B, T) each
+    for r in range(16, 64):
+        s0 = rotr(w[r - 15], 7) ^ rotr(w[r - 15], 18) ^ (w[r - 15] >> 3)
+        s1 = rotr(w[r - 2], 17) ^ rotr(w[r - 2], 19) ^ (w[r - 2] >> 10)
+        w.append((w[r - 16] + s0 + w[r - 7] + s1) & M32)
+    kw = [(int(k) + wr) & M32 for k, wr in zip(sha256.K, w)]
+    state = [torch.full((blocks.shape[0],), int(h), dtype=torch.int64) for h in sha256.H0]
+    for t in range(blocks.shape[1]):
+        a, b, c, d, e, f, g, h = state
+        for r in range(64):
+            t1 = h + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) + ((e & f) ^ (~e & g & M32)) + kw[r][:, t]
+            t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) + ((a & b) ^ (a & c) ^ (b & c))
+            a, b, c, d, e, f, g, h = (t1 + t2) & M32, a, b, c, (d + t1) & M32, e, f, g
+        live = torch.as_tensor(counts) > t
+        state = [torch.where(live, (s + v) & M32, s) for s, v in zip(state, (a, b, c, d, e, f, g, h))]
+    return convert.int32_bits(torch.stack(state, dim=1))
+
+
+def test_sha256_schedule_first_model_matches_plain_and_hashlib():
+    rng = np.random.default_rng(14)
+    msgs = [rng.bytes(n) for n in SHA_EDGE_LENGTHS]
+    words, counts = sha256.pack_ragged(msgs)
+    assert sorted(set(counts.tolist())) == [1, 2, 3, 4, 5]
+    got = _sha_schedule_first_model(words, counts)
+    w, c = convert.words_from_numpy(words, "cpu"), torch.as_tensor(counts)
+    assert torch.equal(got, sha256.sha256_blocks_plain(None, w, c))
+    raw = got.numpy().view(np.uint32).astype(">u4").tobytes()
+    assert [raw[32 * i : 32 * i + 32] for i in range(len(msgs))] == [hashlib.sha256(m).digest() for m in msgs]
+
+
+# ---------------------------------------------------------------------------
 # wrappers: bad input, and the kernels on a card
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [1, 1024, 8192, 8193, 131072])
+def test_hash_layout_choice(b):
+    """The wrappers' choices by width (and block count) are layouts the
+    kernels take: a pair for every permutation, the pair absorbing up to
+    PAIR_MAX_MESSAGES; split SHA-256 only for narrow multi-block batches."""
+    assert keccak_cuda.absorb_lanes(b) == (2 if b <= keccak_cuda.PAIR_MAX_MESSAGES else 1)
+    assert keccak_cuda.absorb_lanes(b) in keccak_cuda.LANE_CHOICES
+    for t in (1, 2, 5):
+        layout = sha256_cuda.compress_layout(b, t)
+        assert layout in sha256_cuda.LAYOUTS
+        assert (layout == "split") == (b <= sha256_cuda.SPLIT_MAX_B and t > 1)
 
 
 @pytest.mark.parametrize("call", [
@@ -409,3 +617,91 @@ def test_sha256_kernel_matches_plain_on_card(cuda_device):
     assert torch.equal(got.cpu(), sha256.sha256_compress_batch(state, block))
     with pytest.raises(ValueError):
         sha256.sha256_compress_batch(state.to(cuda_device).T.contiguous().T, block.to(cuda_device))
+
+
+# widths that are no multiple of a warp or a pair, a batch of one, and the
+# widths chip_smoke.py records
+CARD_WIDTHS = [1, 2, 31, 33, 4099, 8192, 16385, 131072]
+
+
+def _ragged_counts(rng, b: int, most: int, t: int) -> np.ndarray:
+    """Counts 1 to `most`, with 0, T and more than T (the kernel clamps to T)
+    among them."""
+    counts = rng.integers(1, most + 1, b).astype(np.int32)
+    counts[::7] = 0
+    counts[3::11] = t
+    counts[5::13] = t + 3
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", CARD_WIDTHS)
+def test_keccak_layouts_match_plain_on_card(cuda_device, b):
+    """One permutation (a pair of lanes a state), and absorbing in every
+    layout (ragged counts, equal counts), against the plain version on the
+    card."""
+    rng = np.random.default_rng(b)
+    state = convert.words_from_numpy(rng.integers(0, 1 << 32, (b, 25, 2), np.uint32), cuda_device)
+    want = keccak.keccak_f1600_plain(state)
+    assert torch.equal(keccak.keccak_f1600_batch(state), want)
+    assert torch.equal(keccak_cuda.keccak_f1600(state), want)
+    blocks = convert.words_from_numpy(rng.integers(0, 1 << 32, (b, 5, 34), np.uint32), cuda_device)
+    ragged = torch.as_tensor(_ragged_counts(rng, b, 4, 5), device=cuda_device)
+    equal = torch.full((b,), 3, dtype=torch.int32, device=cuda_device)
+    want_ragged = keccak.keccak256_blocks_plain(blocks, ragged)
+    want_equal = keccak.keccak256_blocks_plain(blocks, equal)
+    assert torch.equal(keccak_cuda.keccak256_blocks(blocks, ragged), want_ragged)
+    for lanes in keccak_cuda.LANE_CHOICES:
+        assert torch.equal(keccak_cuda.keccak256_blocks_lanes(blocks, ragged, lanes), want_ragged)
+        assert torch.equal(keccak_cuda.keccak256_blocks_lanes(blocks, equal, lanes), want_equal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", CARD_WIDTHS)
+def test_sha256_layouts_match_plain_on_card(cuda_device, b):
+    """Every layout, from H0 and from a given state, ragged and equal
+    counts, against the plain version on the card."""
+    rng = np.random.default_rng(b + 1)
+    blocks = convert.words_from_numpy(rng.integers(0, 1 << 32, (b, 6, 16), np.uint32), cuda_device)
+    state = convert.words_from_numpy(rng.integers(0, 1 << 32, (b, 8), np.uint32), cuda_device)
+    ragged = torch.as_tensor(_ragged_counts(rng, b, 5, 6), device=cuda_device)
+    one = torch.ones((b,), dtype=torch.int32, device=cuda_device)
+    cases = [(None, blocks, ragged), (state, blocks, ragged), (None, blocks[:, :1].contiguous(), one),
+             (state, blocks, torch.full_like(one, 6))]
+    for st, blk, cnt in cases:
+        want = sha256.sha256_blocks_plain(st, blk, cnt)
+        assert torch.equal(sha256_cuda.sha256_compress(st, blk, cnt), want)
+        for layout in sha256_cuda.LAYOUTS:
+            assert torch.equal(sha256_cuda.sha256_compress_layout(st, blk, cnt, layout), want)
+
+
+@pytest.mark.cuda
+def test_hash_padding_edges_on_card(cuda_device):
+    """Messages at the padding edges in every layout against the host's
+    hashes; a Keccak tensor only 4-byte aligned is refused, a SHA-256 one
+    is not."""
+    rng = np.random.default_rng(16)
+    msgs = [rng.bytes(n) for n in SHA_EDGE_LENGTHS]
+    words, counts = sha256.pack_ragged(msgs)
+    w, c = convert.words_from_numpy(words, cuda_device), torch.as_tensor(counts, device=cuda_device)
+    for layout in sha256_cuda.LAYOUTS:
+        raw = sha256_cuda.sha256_compress_layout(None, w, c, layout).cpu().numpy().view(np.uint32)
+        assert [raw[i].astype(">u4").tobytes() for i in range(len(msgs))] == [hashlib.sha256(m).digest() for m in msgs]
+    msgs = [rng.bytes(n) for n in (0, 1, 135, 136, 137, 271, 272, 407, 408, 543)]
+    words, counts = keccak.pack_ragged(msgs)
+    w, c = convert.words_from_numpy(words, cuda_device), torch.as_tensor(counts, device=cuda_device)
+    for lanes in keccak_cuda.LANE_CHOICES:
+        raw = keccak_cuda.keccak256_blocks_lanes(w, c, lanes).cpu().numpy().astype("<i4").tobytes()
+        assert [raw[32 * i : 32 * i + 32] for i in range(len(msgs))] == [keccak_host(m) for m in msgs]
+    data = np.random.default_rng(17).integers(0, 256, (3, 135), dtype=np.uint8)
+    raw = keccak.keccak256_fixed(torch.as_tensor(data, device=cuda_device)).cpu().numpy().astype("<i4").tobytes()
+    assert [raw[32 * i : 32 * i + 32] for i in range(3)] == [keccak_host(r.tobytes()) for r in data]
+    with pytest.raises(ValueError):
+        odd = torch.zeros(2 * 34 + 1, dtype=torch.int32, device=cuda_device)[1:].reshape(2, 1, 34)
+        keccak_cuda.keccak256_blocks(odd, torch.ones(2, dtype=torch.int32, device=cuda_device))
+    odd = torch.zeros(3 * 16 + 1, dtype=torch.int32, device=cuda_device)[1:].reshape(3, 1, 16)
+    odd.copy_(w.new_tensor(rng.integers(-(1 << 31), 1 << 31, (3, 1, 16))))
+    one = torch.ones(3, dtype=torch.int32, device=cuda_device)
+    for layout in sha256_cuda.LAYOUTS:
+        assert torch.equal(sha256_cuda.sha256_compress_layout(None, odd, one, layout),
+                           sha256.sha256_blocks_plain(None, odd, one))
