@@ -66,9 +66,10 @@ prints one JSON line; any failure raises and exits non-zero.
    random full blob's commitment and opening proof against the host path,
    the proof passing verify_kzg_proof;
 6. serve: the port's proof service (``raiko_tpu_torch.host.cli --device
-   cuda``) answers v2 ``native`` proof requests for three 100-tx taiko_a7
-   blob blocks from the port's chain simulator; the launch counts are reset
-   just before the requests and B1, B2 and B4 must all be positive after;
+   cuda``) answers a v2 ``native`` proof request for one 100-tx taiko_a7
+   blob block from the port's chain simulator (three before the block
+   proof of phase 10 took the run's time); the launch counts are reset
+   just before the request and B1, B2 and B4 must all be positive after;
 7. stark: the STARK trace commitment of the keccak sponge chunk (1,024 rows
    x 4,160 columns, blowup 4) through ``commit_step`` on the card, counts
    reset just before and after them exactly one launch each of B5's intt,
@@ -93,14 +94,40 @@ prints one JSON line; any failure raises and exits non-zero.
 9. check: the port's orchestrator proves each served block again on its
    host path (``device=None``: host MSM, per-tx sender recovery, no
    kernel), and each served ``input`` and ``kzg_proof`` must equal its
-   result, the proof verifying; no JAX or ``raiko_tpu`` module was loaded.
+   result, the proof verifying;
+10. block_prove: the ``tpu_stark`` backend with its keccak-DAG statements
+   (prover args ``evm_statement: false``; the EVM frame statement is not
+   ported yet): the 10-tx block of ``tests/golden/stark_block_10tx.json``
+   (``build_chain``'s mix) through ``Raiko(..., "cuda").prove``, whose
+   payload's sha256, ``input`` and ``kzg_proof`` must
+   equal the JAX golden's, which ``verify_payload(..., "cuda")`` must
+   accept and, with one statement's root changed, reject, and whose proof
+   must launch B5's intt and ntt_coset, poseidon2_hash_rows and
+   poseidon2_merkle; then a 100-tx block served as a v2 ``tpu_stark``
+   request and as a ``native`` one through the port's server, counts reset
+   just before each: the ``tpu_stark`` request must end in ``success``, its
+   payload pass ``verify_payload``, its ``kzg_proof`` equal the native
+   request's and its ``input`` the instance hash of the port's host path
+   (``Raiko(..., None).get_output``), and B1, B2, B4, intt, ntt_coset,
+   poseidon2_hash_rows and poseidon2_merkle must all have launched; one
+   ``statement`` line per statement (tables, wall seconds, the prover's
+   stage times and the transcript's, the host time outside them,
+   launches) and one ``block_prove`` line per block (seconds, verification
+   seconds, peak device memory); no JAX or ``raiko_tpu`` module was
+   loaded.  Each statement's device time is ``--profile``'s: the
+   profiler's bookkeeping would lengthen this run.
 
-The last two lines are the kernels' summary and the device line.
+The run re-executes itself under PYTHONHASHSEED=0 first: the state-trie
+statement's message order follows Python's string hashing, in the JAX
+package as in the port, and the JAX golden was made under that seed.  The
+last two lines are the kernels' summary and the device line.
 
 ``--profile DIR`` runs phases 1-2, then times the stages of one dense blob
 commitment, and puts five commitments, one warm keccak-chunk STARK proof
-(device and wall time of each prover stage) and each of three
-served-path requests (through the port's orchestrator) under
+(device and wall time of each prover stage), each of three
+served-path requests (through the port's orchestrator) and the first of
+those blocks proven as a ``tpu_stark`` request (each statement's device
+and wall time) under
 torch.profiler: device time against wall time, launches, the top kernels
 and the device time of each of the port's own kernels.  The profiler's tables
 go to DIR/profile_*.txt.
@@ -169,6 +196,23 @@ STARK = ("intt", "ntt_coset", "poseidon2_hash_rows", "poseidon2_merkle")
 OPS = ("ec_double", "ntt_mxu", "keccak_f1600", "sha256_compress", "ntt", "poseidon2_compress")
 # the proofs of phase stark_prove, each against its JAX golden
 PROOF_CASES = ("fib", "transcript", "keccak_chunk")
+# phase block_prove: the tpu_stark backend with its keccak-DAG statements
+# (the EVM frame statement is not ported yet), on the golden's 10-tx block
+# and a served 100-tx block; the served block must launch every kernel here
+BLOCK_ARGS = {"evm_statement": False, "proof_cache": False}
+BLOCK_SERVED_TXS = 100
+BLOCK = SERVED + STARK
+# The state-trie statement's message order follows the reference
+# preflight's set of accessed accounts, whose order follows Python's string
+# hashing: the run re-executes itself under the golden's PYTHONHASHSEED
+# (tools/make_stark_goldens.py), so the 10-tx payload can equal the JAX one.
+HASH_SEED = "0"
+
+
+def pin_hash_seed(argv: list[str]) -> None:
+    """Re-execute `argv` under PYTHONHASHSEED=HASH_SEED unless already so."""
+    if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
+        os.execve(sys.executable, [sys.executable, *argv], {**os.environ, "PYTHONHASHSEED": HASH_SEED})
 
 
 def emit(phase: str, **fields) -> None:
@@ -1119,73 +1163,6 @@ def phase_kzg():
         raise AssertionError("device KZG differs from the host path or does not verify")
 
 
-def build_chain(n_blocks: int, n_txs: int, device):
-    """The 100-tx taiko_a7 blob-block workload of tools/bench_block.py
-    (80% storage churn over 20 contracts, 10% transfers, 10% calls into a
-    contract that CALLs another and the identity precompile), n_blocks
-    times, registered with the port's provider; block production runs its
-    device work on `device`.  Returns the L2 sim."""
-    from raiko_tpu_torch.core import provider
-    from raiko_tpu_torch.proto.types import Transaction
-    from raiko_tpu_torch.testing.chainsim import ChainSim, TaikoSim
-    from raiko_tpu_torch.utils import secp256k1
-
-    keys = [0xBE7C + i for i in range(8)]
-    senders = [secp256k1.pubkey_to_address(secp256k1.pubkey(k)) for k in keys]
-    provider._SIM_REGISTRY.clear()
-    l1 = ChainSim("ethereum", device=device)
-    for s in senders:
-        l1.fund(s, 10**20)
-    l1.produce_block([])
-    l2 = TaikoSim(l1, "taiko_a7", device=device)
-    for s in senders:
-        l2.fund(s, 10**20)
-    n_contracts = max(1, min(20, n_txs // 5))
-    churn_code = bytes.fromhex("6001546001016001556002546001016002" + "5500")
-    contracts = []
-    for i in range(n_contracts):
-        addr = bytes([0x95, i]) + b"\x00" * 18
-        l2.fund(addr, 0, code=churn_code, storage={1: 5 + i, 2: 9 + i})
-        contracts.append(addr)
-    callee_b = bytes([0x60, 0x00, 0x35, 0x60, 0x01, 0x01, 0x60, 0x00, 0x52, 0x60, 0x20, 0x60, 0x00, 0xF3])
-    addr_b = b"\x97" + b"\x00" * 19
-    l2.fund(addr_b, 0, code=callee_b)
-    caller_a = bytes([
-        0x60, 41, 0x60, 0x00, 0x52,
-        0x60, 0x20, 0x60, 0x20, 0x60, 0x20, 0x60, 0x00, 0x60, 0x00,
-        0x73, *addr_b, 0x61, 0xFF, 0xFF, 0xF1,
-        0x60, 0x20, 0x51, 0x01,
-        0x60, 0x20, 0x60, 0x40, 0x60, 0x20, 0x60, 0x00, 0x60, 0x00,
-        0x60, 0x04, 0x61, 0xFF, 0xFF, 0xF1,
-        0x00,
-    ])
-    addr_a = b"\x98" + b"\x00" * 19
-    l2.fund(addr_a, 0, code=caller_a)
-    nonces = [0] * len(keys)
-
-    def mktx(si, to, value=0, gas=200_000):
-        tx = Transaction(tx_type=2, chain_id=167009, nonce=nonces[si], max_priority_fee_per_gas=1,
-                         max_fee_per_gas=100, gas_limit=gas, to=to, value=value)
-        tx.sign(keys[si])
-        nonces[si] += 1
-        return tx
-
-    for blk in range(n_blocks):
-        txs = []
-        for i in range(n_txs):
-            si = i % len(keys)
-            if i % 10 == 8:
-                txs.append(mktx(si, bytes([0x66, i]) + bytes([blk]) + b"\x00" * 17, value=7, gas=21_000))
-            elif i % 10 == 9:
-                txs.append(mktx(si, addr_a, gas=150_000))
-            else:
-                txs.append(mktx(si, contracts[i % n_contracts]))
-        l2.produce_taiko_block(txs, use_blob=True)
-    provider.register_sim("ethereum", l1)
-    provider.register_sim("taiko_a7", l2)
-    return l2
-
-
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1207,6 +1184,7 @@ def phase_serve(device: str, n_blocks: int, n_txs: int):
     block's served proof (``input``, ``kzg_proof``)."""
     from raiko_tpu_torch import kernels
     from raiko_tpu_torch.host.cli import BackgroundServer
+    from raiko_tpu_torch.testing.workload import build_chain
 
     port = _free_port()
     argv = ["--device", device, "--address", "127.0.0.1", "--port", str(port), "--log-level", "warning"]
@@ -1269,6 +1247,188 @@ def check_requests(served: list[dict]) -> None:
             raise AssertionError(f"block {blk}: the served proof differs from the host path's: {checks}")
 
 
+class StatementMeter:
+    """Per statement of a ``tpu_stark`` proof (its ``tpu_stark.*`` spans,
+    from any thread): wall seconds, the prover's stage spans inside it in
+    ms (``stark.*``; ``transcript``: the Fiat-Shamir hashing between the
+    stages), the host time outside those stages (building the tables'
+    traces, serialising), and the kernels' launches since the previous
+    statement ended (the first, ``reexecute``, since the meter started: a
+    served request's preflight and output check too)."""
+
+    def __enter__(self):
+        from raiko_tpu_torch import kernels
+        from raiko_tpu_torch.utils.measurement import Measurement
+
+        self._launches = kernels.LAUNCHES
+        self._mark = self._launches.snapshot()
+        self._stages: dict = {}
+        self.rows: dict = {}
+        self._token = Measurement.subscribe(self._record)
+        return self
+
+    def __exit__(self, *exc):
+        from raiko_tpu_torch.utils.measurement import Measurement
+
+        Measurement.unsubscribe(self._token)
+
+    def _record(self, title: str, seconds: float) -> None:
+        if title.startswith("stark."):
+            key = title.removeprefix("stark.") + "_ms"
+            self._stages[key] = self._stages.get(key, 0.0) + seconds * 1e3
+        elif title.startswith("tpu_stark."):
+            snap = self._launches.snapshot()
+            self.rows[title.removeprefix("tpu_stark.")] = {
+                "wall_s": seconds, "transcript_s": self._stages.get("transcript_ms", 0.0) / 1e3,
+                "stages_ms": self._stages, "outside_stages_s": seconds - sum(self._stages.values()) / 1e3,
+                "launches": {k: v - self._mark.get(k, 0) for k, v in snap.items() if v != self._mark.get(k, 0)}}
+            self._mark, self._stages = snap, {}
+
+
+def statement_tables(payload: dict) -> dict:
+    """slot -> the number of STARK tables of each statement in a payload."""
+    out = {"stark": 1}
+    for slot in ("mpt", "tx_mpt", "receipts_mpt", "chain"):
+        if slot in payload:
+            out[slot] = len(payload[slot].get("starks", payload[slot].get("stark_chunks", [])))
+    return out
+
+
+def emit_statements(block: str, payload: dict, meter: StatementMeter, device_ms: dict | None) -> None:
+    tables = statement_tables(payload)
+    for slot, row in meter.rows.items():
+        emit("statement", block=block, statement=slot, tables=tables.get(slot, 0), **row,
+             device_ms=None if device_ms is None else device_ms.get(slot, 0.0))
+
+
+def statement_device_ms(prof) -> dict:
+    """Device ms under each ``tpu_stark.*`` range of a profile (ranges of
+    the profiling thread only)."""
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("tpu_stark."):
+            slot = e.name.removeprefix("tpu_stark.")
+            out[slot] = out.get(slot, 0.0) + e.device_time_total / 1e3
+    return out
+
+
+def block_request(device) -> tuple:
+    """(Raiko, guest input, output) of block 1 as a ``tpu_stark`` request."""
+    from raiko_tpu_torch.chain import SupportedChainSpecs
+    from raiko_tpu_torch.core.interfaces import ProofRequest, ProofType
+    from raiko_tpu_torch.core.orchestrator import Raiko
+
+    req = ProofRequest(block_number=1, network="taiko_a7", proof_type=ProofType.TPU_STARK,
+                       prover_args=dict(BLOCK_ARGS))
+    raiko = Raiko(SupportedChainSpecs(), req, device)
+    gi = raiko.generate_input()
+    return raiko, gi, raiko.get_output(gi)
+
+
+def phase_block_prove() -> dict:
+    """The tpu_stark backend on the card: the golden's 10-tx block through
+    ``Raiko(..., "cuda").prove`` against the JAX payload, then a 100-tx
+    block served as a v2 ``tpu_stark`` request; returns the served
+    request's launches."""
+    import hashlib
+
+    import torch
+
+    from raiko_tpu_torch import kernels
+    from raiko_tpu_torch.host.cli import BackgroundServer
+    from raiko_tpu_torch.provers import tpu_stark
+    from raiko_tpu_torch.testing.workload import build_chain
+
+    def sha(obj) -> str:
+        return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, "tests", "golden", "stark_block_10tx.json")) as f:
+        g = json.load(f)
+    cuda = torch.device("cuda")
+    build_chain(1, g["inputs"]["txs"], cuda)
+    raiko, gi, out = block_request(cuda)
+    if gi.block_header.hash().hex() != g["block_hash"] or out.hash.hex() != g["instance_hash"]:
+        raise AssertionError("the 10-tx block or its instance hash differs from the JAX golden's")
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.reset()
+    with StatementMeter() as meter:
+        proof, ms = once_ms(lambda: raiko.prove(gi, out))
+    launches = kernels.LAUNCHES.snapshot()
+    payload = json.loads(proof.proof)
+    verified, verify_ms = once_ms(lambda: tpu_stark.verify_payload(payload, cuda))
+    bad = dict(payload, mpt=dict(payload["mpt"], state_root=hashlib.sha256(b"another root").hexdigest()))
+    tampered_rejected = not tpu_stark.verify_payload(bad, cuda)
+    checks = {
+        "equal_golden": sha(payload) == g["sha256"],
+        "input_equal_golden": proof.input_hash == g["input"],
+        "kzg_proof_equal_golden": proof.kzg_proof == g["kzg_proof"],
+        "verified": verified,
+        "tampered_root_rejected": tampered_rejected,
+    }
+    emit_statements("10tx", payload, meter, None)
+    emit("block_prove", block="10tx", txs=len(gi.transactions), prove_s=ms / 1e3,
+         verify_s=verify_ms / 1e3, tables=sum(statement_tables(payload).values()), launches=launches,
+         sha256=sha(payload), golden_sha256=g["sha256"], jax_cpu_prove_s=g["jax_cpu_prove_seconds"], **checks)
+    if not all(checks.values()):
+        differ = [slot for slot, want in g["statements"].items() if sha(payload.get(slot)) != want]
+        raise AssertionError(f"10-tx block: {checks}; statements that differ from the JAX golden: {differ}")
+    missing = [k for k in STARK if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"10-tx block: kernels not launched by the proof: {missing}")
+
+    # the 100-tx block served as a v2 tpu_stark request, then as native
+    port = _free_port()
+    argv = ["--device", "cuda", "--address", "127.0.0.1", "--port", str(port), "--log-level", "warning"]
+    base = f"http://127.0.0.1:{port}"
+    served = {}
+    with BackgroundServer(argv) as srv:
+        build_chain(1, BLOCK_SERVED_TXS, srv.device)
+        for proof_type in ("tpu_stark", "native"):
+            # the request's prover args sit beside its fields (ProofRequest.from_opt)
+            body = {"block_number": 1, "network": "taiko_a7", "proof_type": proof_type}
+            if proof_type == "tpu_stark":
+                body.update(BLOCK_ARGS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.LAUNCHES.reset()
+            with StatementMeter() as meter:
+                t0 = time.perf_counter()
+                r = _post(f"{base}/v2/proof", body)
+                while r["status"] == "ok" and r["data"].get("status") in ("registered", "work_in_progress"):
+                    if time.perf_counter() - t0 > 900:
+                        raise TimeoutError(f"{proof_type}: no proof after 900 s")
+                    time.sleep(0.2)
+                    r = _post(f"{base}/v2/proof", body)
+                seconds = time.perf_counter() - t0
+            if r["status"] != "ok" or r["data"].get("status") != "success":
+                raise AssertionError(f"100-tx {proof_type} request ended as {r}")
+            served[proof_type] = (r["data"]["proof"], seconds, kernels.LAUNCHES.snapshot(),
+                                  torch.cuda.max_memory_allocated() / 1e9, meter)
+    stark_proof, seconds, launches, peak_gb, meter = served["tpu_stark"]
+    payload = json.loads(stark_proof["proof"])
+    verified, verify_ms = once_ms(lambda: tpu_stark.verify_payload(payload, cuda))
+    _, _, host_out = block_request(None)
+    checks = {
+        "verified": verified,
+        "kzg_proof_equal_native": stark_proof["kzg_proof"] == served["native"][0]["kzg_proof"],
+        "input_equal_host": stark_proof["input"] == "0x" + host_out.hash.hex(),
+    }
+    emit_statements("100tx", payload, meter, None)
+    emit("block_prove", block="100tx", served=True, seconds_per_request=seconds, verify_s=verify_ms / 1e3,
+         tables=sum(statement_tables(payload).values()), launches=launches, peak_device_gb=peak_gb,
+         payload_bytes=len(stark_proof["proof"]), native_seconds=served["native"][1],
+         phase_s=time.perf_counter() - t_phase, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"served 100-tx tpu_stark block: {checks}")
+    missing = [k for k in BLOCK if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the served tpu_stark block: {missing}")
+    return launches
+
+
 def refused_modules() -> list[str]:
     """Modules of JAX or of the JAX package loaded in this process (the
     refusal above lets none)."""
@@ -1290,6 +1450,7 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
     from raiko_tpu_torch.core.orchestrator import Raiko
     from raiko_tpu_torch.kzg import eip4844
     from raiko_tpu_torch.ops import ec_cuda, msm
+    from raiko_tpu_torch.testing.workload import build_chain
 
     cuda = torch.device("cuda")
     os.makedirs(out_dir, exist_ok=True)
@@ -1299,10 +1460,11 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
         """Total device time of the run, the four largest kernels, and the
         time of each of the port's own kernels (namespace raiko).  The
         prover's stage ranges (``stark.*``) also appear on the device's
-        timeline; they are spans, not work, and are left out."""
+        timeline; they are spans, not work, and are left out, as are the
+        statements' ranges (``tpu_stark.*``)."""
         per_name: dict[str, float] = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA and not e.name.startswith("stark."):
+            if e.device_type == DeviceType.CUDA and not e.name.startswith(("stark.", "tpu_stark.")):
                 per_name[e.name[:60]] = per_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
         top = dict(sorted(per_name.items(), key=lambda kv: -kv[1])[:4])
         ours = {name: ms for name, ms in per_name.items() if "raiko" in name}
@@ -1374,10 +1536,25 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
              launches=kernels.LAUNCHES.snapshot(), top_device_ms=top, kernels_device_ms=ours)
         save(prof, f"profile_request{blk}.txt")
 
+    # block 1 as a tpu_stark request (phase block_prove serves it): the
+    # device and wall time of each statement
+    raiko, gi, out = block_request(cuda)
+    kernels.LAUNCHES.reset()
+    with StatementMeter() as meter, profile(activities=activities) as prof:
+        proof, wall_ms = once_ms(lambda: raiko.prove(gi, out))
+    dev_ms, top, ours = device_ms(prof)
+    payload = json.loads(proof.proof)
+    emit_statements("100tx", payload, meter, statement_device_ms(prof))
+    emit("profile_block_prove", block=1, txs=len(gi.transactions), wall_ms=wall_ms, device_ms=dev_ms,
+         busy_share=dev_ms / wall_ms, tables=sum(statement_tables(payload).values()),
+         launches=kernels.LAUNCHES.snapshot(), top_device_ms=top, kernels_device_ms=ours)
+    save(prof, "profile_block_prove.txt")
+
 
 def main(argv=None) -> int:
     import argparse
 
+    pin_hash_seed([os.path.abspath(__file__), *sys.argv[1:]])
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1405,7 +1582,7 @@ def main(argv=None) -> int:
     kres.update(ops_results)
     check_mxu_sass(pending_sass)
     phase_kzg()
-    per_request, launches, served = phase_serve("cuda", n_blocks=3, n_txs=100)
+    per_request, launches, served = phase_serve("cuda", n_blocks=1, n_txs=100)
     emit("serve", requests=len(per_request), seconds_per_request=per_request, launches=launches)
     missing = [k for k in SERVED if launches.get(k, 0) <= 0]
     if missing:
@@ -1418,6 +1595,7 @@ def main(argv=None) -> int:
     proof_launches = phase_stark_prove()
     launches.update(ops_launches)
     check_requests(served)
+    block_launches = phase_block_prove()
     loaded = refused_modules()
     emit("refused", loaded=loaded, seconds=time.perf_counter() - t_start)
     if loaded:
@@ -1426,7 +1604,8 @@ def main(argv=None) -> int:
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "timing": r["timing"],
-         "events_ms": r["events_ms"], "launches_per_keccak_proof": proof_launches.get(k, 0)}
+         "events_ms": r["events_ms"], "launches_per_keccak_proof": proof_launches.get(k, 0),
+         "launches_per_block_proof": block_launches.get(k, 0)}
         for k, r in kres.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,11 @@
 
 Registry-dispatched (reference run_prover, core/src/interfaces.rs:168-222).
 The port registers ``native`` (re-execute + check, no proof; reference
-NativeProver) only; a request for another proof type is refused as an
-unregistered type (``GuestError``).
+NativeProver) and ``tpu_stark`` (the STARK backend with its keccak-DAG
+statements; it refuses a config that asks for the EVM frame statement or
+the seal, which are not ported yet).  A request for another proof type
+(``tpu_shard``, ``tee``, ``remote``) is refused as an unregistered type
+(``GuestError``).
 """
 
 from ..core.interfaces import ProofType

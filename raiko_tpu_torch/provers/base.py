@@ -51,4 +51,6 @@ def get_prover(proof_type: ProofType) -> Prover:
 
 
 def _autoload() -> None:
-    from . import native  # noqa: F401
+    # plain imports: a broken backend module raises here rather than
+    # reading as "no prover registered"
+    from . import native, tpu_stark  # noqa: F401

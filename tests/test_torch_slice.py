@@ -151,12 +151,21 @@ def test_v2_request_through_port_server(chain, reference_proof):
 
 
 def test_only_native_is_registered(chain):
-    # the other backends are later slices of the port: refused as the
-    # reference refuses an unregistered proof type
-    req = ProofRequest(block_number=2, network="taiko_a7", proof_type=ProofType.TPU_STARK)
+    # native and, since slice 3a, tpu_stark are registered; the other
+    # backends are later slices of the port: refused as the reference
+    # refuses an unregistered proof type
+    req = ProofRequest(block_number=2, network="taiko_a7", proof_type=ProofType.TPU_SHARD)
     raiko = Raiko(SupportedChainSpecs(), req, None)
     gi = raiko.generate_input()
-    with pytest.raises(GuestError):
+    with pytest.raises(GuestError, match="no prover registered"):
+        raiko.prove(gi, raiko.get_output(gi))
+    # a tpu_stark statement not ported yet (here the seal) is refused,
+    # never left out of the payload
+    req = ProofRequest(block_number=2, network="taiko_a7", proof_type=ProofType.TPU_STARK,
+                       prover_args={"seal": True})
+    raiko = Raiko(SupportedChainSpecs(), req, None)
+    gi = raiko.generate_input()
+    with pytest.raises(GuestError, match="not ported yet"):
         raiko.prove(gi, raiko.get_output(gi))
 
 

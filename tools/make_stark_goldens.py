@@ -3,6 +3,7 @@
 
     JAX_PLATFORMS=cpu python tools/make_stark_goldens.py            # every case
     JAX_PLATFORMS=cpu python tools/make_stark_goldens.py fib affine # some
+    JAX_PLATFORMS=cpu python tools/make_stark_goldens.py block_10tx # minutes
 
 Each case proves one AIR with ``raiko_tpu.stark.prover`` on the CPU, checks
 the proof with ``raiko_tpu.stark.verifier.verify_tables`` (a golden that
@@ -18,6 +19,30 @@ The keccak cases evaluate the quotient with the JAX package's host-numpy
 path (``RAIKO_EAGER_QUOTIENT=1``, the same proof bytes as the jitted path):
 XLA:CPU compiles the 4,160-column AIR's jitted quotient far too slowly.
 The golden records which path made it (``eager_quotient``).
+
+Two cases prove ``tpu_stark`` payloads instead of one AIR, both with the
+keccak cases' host quotient, and are written only if
+``raiko_tpu.provers.tpu_stark.verify_payload`` accepts them:
+
+- ``containment_chain``: three messages, each holding the keccak digest
+  of the next, as one ``_prove_containment`` payload (the sponge, byte and
+  claim tables in one transcript), kept whole;
+- ``block_10tx``: a 10-tx taiko_a7 blob block of the port's bench mix
+  (``raiko_tpu_torch/testing/workload.py``; 80% storage churn, 10%
+  transfers, 10% nested CALLs),
+  built with the JAX package's chain simulator (``tests/chainsim.py``)
+  from the same recipe, and proven by the JAX ``tpu_stark`` backend with
+  prover args ``BLOCK_ARGS``.  The golden keeps the block's hash (a recipe
+  that drifts shows there before any proof is compared), the instance
+  hash, the KZG proof, the sha256 of ``json.dumps(payload,
+  sort_keys=True)`` and of each statement, each statement's table count,
+  and the JAX CPU seconds.
+
+The state-trie statement's message order follows the reference
+preflight's set of accessed accounts (``ProviderDb.accessed_accounts``),
+whose iteration order follows Python's string hashing; so the tool runs
+under ``PYTHONHASHSEED=0`` (it re-executes itself so), and the port's
+runs that compare against ``block_10tx`` do too.
 """
 
 from __future__ import annotations
@@ -41,6 +66,12 @@ AFFINE_START = 7
 AFFINE_FIXED_SEED = 1234
 KECCAK_CHUNK_PERMS = 23  # MAX_MPT_PERMS of provers/tpu_stark.py: n = 1,024
 KECCAK_SMALL = (3, 4)  # 3 messages, 4 blocks: n = 256
+CHAIN_SEED = 11
+BLOCK_TXS = 10
+BLOCK_ARGS = {"evm_statement": False, "proof_cache": False}
+HASH_SEED = "0"  # PYTHONHASHSEED of every run compared against block_10tx
+# the payload slots that hold a STARK statement, in the order run() proves them
+STATEMENTS = ("stark", "mpt", "tx_mpt", "receipts_mpt", "chain")
 
 
 def keccak_messages(seed: int, n_msgs: int | None, n_blocks: int) -> list[bytes]:
@@ -188,27 +219,185 @@ def make_golden(name: str, make, whole: bool, eager: bool) -> dict:
     return out
 
 
+def chain_messages(seed: int) -> list[bytes]:
+    """m0 holds keccak(m1), m1 holds keccak(m2) (tests/test_containment.py)."""
+    from raiko_tpu.utils import keccak256
+
+    rng = np.random.default_rng(seed)
+    m2 = bytes(rng.integers(0, 256, 40, dtype=np.uint8))
+    m1 = b"\x01\x02" + keccak256(m2) + bytes(rng.integers(0, 256, 30, dtype=np.uint8))
+    m0 = bytes(rng.integers(0, 256, 5, dtype=np.uint8)) + keccak256(m1) + b"\xff"
+    return [m0, m1, m2]
+
+
+def build_jax_chain(n_txs: int) -> None:
+    """One taiko_a7 blob block of the port's ``testing.workload.build_chain``
+    mix, built by the JAX package's chain simulator from a copy of its
+    recipe and registered with the JAX package's provider."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from chainsim import ChainSim, TaikoSim
+    from raiko_tpu.core import provider
+    from raiko_tpu.proto.types import Transaction
+    from raiko_tpu.utils import secp256k1
+
+    keys = [0xBE7C + i for i in range(8)]
+    senders = [secp256k1.pubkey_to_address(secp256k1.pubkey(k)) for k in keys]
+    provider._SIM_REGISTRY.clear()
+    l1 = ChainSim("ethereum")
+    for s in senders:
+        l1.fund(s, 10**20)
+    l1.produce_block([])
+    l2 = TaikoSim(l1, "taiko_a7")
+    for s in senders:
+        l2.fund(s, 10**20)
+    n_contracts = max(1, min(20, n_txs // 5))
+    churn_code = bytes.fromhex("6001546001016001556002546001016002" + "5500")
+    contracts = []
+    for i in range(n_contracts):
+        addr = bytes([0x95, i]) + b"\x00" * 18
+        l2.fund(addr, 0, code=churn_code, storage={1: 5 + i, 2: 9 + i})
+        contracts.append(addr)
+    callee_b = bytes([0x60, 0x00, 0x35, 0x60, 0x01, 0x01, 0x60, 0x00, 0x52, 0x60, 0x20, 0x60, 0x00, 0xF3])
+    addr_b = b"\x97" + b"\x00" * 19
+    l2.fund(addr_b, 0, code=callee_b)
+    caller_a = bytes([
+        0x60, 41, 0x60, 0x00, 0x52,
+        0x60, 0x20, 0x60, 0x20, 0x60, 0x20, 0x60, 0x00, 0x60, 0x00,
+        0x73, *addr_b, 0x61, 0xFF, 0xFF, 0xF1,
+        0x60, 0x20, 0x51, 0x01,
+        0x60, 0x20, 0x60, 0x40, 0x60, 0x20, 0x60, 0x00, 0x60, 0x00,
+        0x60, 0x04, 0x61, 0xFF, 0xFF, 0xF1,
+        0x00,
+    ])
+    addr_a = b"\x98" + b"\x00" * 19
+    l2.fund(addr_a, 0, code=caller_a)
+    nonces = [0] * len(keys)
+
+    def mktx(si, to, value=0, gas=200_000):
+        tx = Transaction(tx_type=2, chain_id=167009, nonce=nonces[si], max_priority_fee_per_gas=1,
+                         max_fee_per_gas=100, gas_limit=gas, to=to, value=value)
+        tx.sign(keys[si])
+        nonces[si] += 1
+        return tx
+
+    blk = 0
+    txs = []
+    for i in range(n_txs):
+        si = i % len(keys)
+        if i % 10 == 8:
+            txs.append(mktx(si, bytes([0x66, i]) + bytes([blk]) + b"\x00" * 17, value=7, gas=21_000))
+        elif i % 10 == 9:
+            txs.append(mktx(si, addr_a, gas=150_000))
+        else:
+            txs.append(mktx(si, contracts[i % n_contracts]))
+    l2.produce_taiko_block(txs, use_blob=True)
+    provider.register_sim("ethereum", l1)
+    provider.register_sim("taiko_a7", l2)
+
+
+def _sha(obj) -> str:
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def statement_tables(payload: dict) -> dict:
+    """slot -> number of STARK tables, for each statement in the payload."""
+    out = {}
+    for slot in STATEMENTS:
+        if slot in payload:
+            st = payload[slot]
+            out[slot] = 1 if slot == "stark" else len(st.get("starks", st.get("stark_chunks", [])))
+    return out
+
+
+def golden_containment_chain() -> dict:
+    from raiko_tpu.provers import tpu_stark
+    from raiko_tpu.utils import keccak256
+
+    msgs = chain_messages(CHAIN_SEED)
+    root = keccak256(msgs[0])
+    os.environ["RAIKO_EAGER_QUOTIENT"] = "1"
+    t0 = time.perf_counter()
+    payload = tpu_stark._prove_containment(msgs, len(msgs), root, tpu_stark.PERMS_PER_CHUNK)
+    seconds = time.perf_counter() - t0
+    if not tpu_stark.verify_mpt_v2_payload(payload, root):
+        raise SystemExit("containment_chain: the JAX package's verifier rejects its own payload")
+    return {
+        "case": "containment_chain",
+        "inputs": {"seed": CHAIN_SEED, "messages": [m.hex() for m in msgs], "root": root.hex(),
+                   "perms_per_chunk": tpu_stark.PERMS_PER_CHUNK},
+        "sha256": _sha(payload),
+        "tables": len(payload["starks"]),
+        "eager_quotient": True,
+        "jax_cpu_prove_seconds": seconds,
+        "payload": payload,
+    }
+
+
+def golden_block_10tx() -> dict:
+    from raiko_tpu.chain import SupportedChainSpecs
+    from raiko_tpu.core.interfaces import ProofRequest, ProofType
+    from raiko_tpu.core.orchestrator import Raiko
+    from raiko_tpu.provers import tpu_stark
+
+    build_jax_chain(BLOCK_TXS)
+    req = ProofRequest(block_number=1, network="taiko_a7", proof_type=ProofType.TPU_STARK,
+                       prover_args=dict(BLOCK_ARGS))
+    raiko = Raiko(SupportedChainSpecs(), req)
+    gi = raiko.generate_input()
+    out = raiko.get_output(gi)
+    os.environ["RAIKO_EAGER_QUOTIENT"] = "1"
+    t0 = time.perf_counter()
+    proof = raiko.prove(gi, out)
+    seconds = time.perf_counter() - t0
+    payload = json.loads(proof.proof)
+    t0 = time.perf_counter()
+    if not tpu_stark.verify_payload(payload):
+        raise SystemExit("block_10tx: the JAX package's verifier rejects its own payload")
+    verify_seconds = time.perf_counter() - t0
+    return {
+        "case": "block_10tx",
+        "inputs": {"txs": BLOCK_TXS, "network": "taiko_a7", "block_number": 1, "prover_args": BLOCK_ARGS,
+                   "python_hash_seed": HASH_SEED},
+        "block_hash": gi.block_header.hash().hex(),
+        "instance_hash": out.hash.hex(),
+        "input": proof.input_hash,
+        "kzg_proof": proof.kzg_proof,
+        "sha256": _sha(payload),
+        "statements": {slot: _sha(payload[slot]) for slot in sorted(payload)},
+        "tables": statement_tables(payload),
+        "eager_quotient": True,
+        "jax_cpu_prove_seconds": seconds,
+        "jax_cpu_verify_seconds": verify_seconds,
+    }
+
+
+PAYLOAD_CASES = {"containment_chain": golden_containment_chain, "block_10tx": golden_block_10tx}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("cases", nargs="*", help="cases to write (default: all)")
     args = parser.parse_args(argv)
+    if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
+        os.execve(sys.executable, [sys.executable, os.path.abspath(__file__), *(argv or sys.argv[1:])],
+                  {**os.environ, "PYTHONHASHSEED": HASH_SEED})
     sys.path.insert(0, ROOT)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     cases = _cases()
-    names = args.cases or list(cases)
-    unknown = sorted(set(names) - set(cases))
+    names = args.cases or list(cases) + list(PAYLOAD_CASES)
+    unknown = sorted(set(names) - set(cases) - set(PAYLOAD_CASES))
     if unknown:
-        raise SystemExit(f"unknown cases {unknown}; known: {sorted(cases)}")
+        raise SystemExit(f"unknown cases {unknown}; known: {sorted(cases) + sorted(PAYLOAD_CASES)}")
     os.makedirs(GOLDEN, exist_ok=True)
     for name in names:
-        golden = make_golden(name, *cases[name])
+        golden = PAYLOAD_CASES[name]() if name in PAYLOAD_CASES else make_golden(name, *cases[name])
         path = os.path.join(GOLDEN, f"stark_{name}.json")
         with open(path, "w") as f:
             json.dump(golden, f, sort_keys=True)
             f.write("\n")
-        print(f"{name}: {golden['sha256']} ({golden['proof_bytes']} bytes, "
+        print(f"{name}: {golden['sha256']} ({golden.get('proof_bytes', '-')} bytes, "
               f"{golden['jax_cpu_prove_seconds']:.1f} s) -> {os.path.relpath(path, ROOT)}", flush=True)
     return 0
 

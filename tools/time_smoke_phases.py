@@ -6,7 +6,7 @@ checkouts compare in one call.
 
 Runs the checkout's own chip_smoke.py functions: its device and build
 phases, the setup points' upload, then each PHASE named (default: ops; any
-of kernels, stark_kernels, ops, kzg, stark, stark_prove), each as
+of kernels, stark_kernels, ops, kzg, stark, stark_prove, block_prove), each as
 chip_smoke.py runs it, checks included.  Prints the phases' own lines, then
 one JSON line per PHASE with its seconds.  Needs one CUDA card; the
 checkout's chip_smoke.py refuses JAX and the JAX package on import.
@@ -21,7 +21,7 @@ import os
 import sys
 import time
 
-PHASES = ("kernels", "stark_kernels", "ops", "kzg", "stark", "stark_prove")
+PHASES = ("kernels", "stark_kernels", "ops", "kzg", "stark", "stark_prove", "block_prove")
 
 
 def main() -> int:
@@ -37,6 +37,8 @@ def main() -> int:
 
     if smoke.ROOT != root:
         raise SystemExit(f"time_smoke_phases: imported {smoke.ROOT}'s chip_smoke.py, not {root}'s")
+    if hasattr(smoke, "pin_hash_seed"):  # block_prove's golden needs the seed
+        smoke.pin_hash_seed([os.path.abspath(__file__), *sys.argv[1:]])
     import torch
 
     if not torch.cuda.is_available():
