@@ -95,25 +95,36 @@ prints one JSON line; any failure raises and exits non-zero.
    host path (``device=None``: host MSM, per-tx sender recovery, no
    kernel), and each served ``input`` and ``kzg_proof`` must equal its
    result, the proof verifying;
-10. block_prove: the ``tpu_stark`` backend with its keccak-DAG statements
-   (prover args ``evm_statement: false``; the EVM frame statement is not
-   ported yet): the 10-tx block of ``tests/golden/stark_block_10tx.json``
-   (``build_chain``'s mix) through ``Raiko(..., "cuda").prove``, whose
-   payload's sha256, ``input`` and ``kzg_proof`` must
-   equal the JAX golden's, which ``verify_payload(..., "cuda")`` must
-   accept and, with one statement's root changed, reject, and whose proof
-   must launch B5's intt and ntt_coset, poseidon2_hash_rows and
-   poseidon2_merkle; then a 100-tx block served as a v2 ``tpu_stark``
-   request and as a ``native`` one through the port's server, counts reset
-   just before each: the ``tpu_stark`` request must end in ``success``, its
-   payload pass ``verify_payload``, its ``kzg_proof`` equal the native
-   request's and its ``input`` the instance hash of the port's host path
-   (``Raiko(..., None).get_output``), and B1, B2, B4, intt, ntt_coset,
-   poseidon2_hash_rows and poseidon2_merkle must all have launched; one
-   ``statement`` line per statement (tables, wall seconds, the prover's
-   stage times and the transcript's, the host time outside them,
-   launches) and one ``block_prove`` line per block (seconds, verification
-   seconds, peak device memory); no JAX or ``raiko_tpu`` module was
+10. block_prove: the ``tpu_stark`` backend under the default config
+   (prover args ``proof_cache: false`` only: every statement, the EVM
+   frame statement and its prestate binding among them).  First the host
+   Poseidon2 that the transcript and the verifier run: the C library
+   (``ops/poseidon2_host.py``) must load and equal ``host_permute`` (one
+   ``host_poseidon2`` line: which permutation ran, microseconds per
+   permutation of each).  Then the 10-tx block of
+   ``tests/golden/stark_block_10tx_evm.json`` (``build_chain``'s mix)
+   through ``Raiko(..., "cuda").prove``, whose payload's sha256, each
+   statement's sha256, ``input`` and ``kzg_proof`` must equal the JAX
+   golden's, with all 9 frame candidates covered and a ``prestate`` slot,
+   which ``verify_payload(..., "cuda")`` must accept and, with the first
+   frame's ``gas_f`` lowered by one, reject, whose proof must launch B5's
+   intt and ntt_coset, poseidon2_hash_rows and poseidon2_merkle, and whose
+   transcript and verification must call the C library; then a 100-tx
+   block served as a v2 ``tpu_stark`` request (its depth cut to
+   ``BLOCK_SERVED_FRAMES`` call trees, printed) and as a ``native`` one
+   through the port's server, counts reset just before each: the
+   ``tpu_stark`` request must end in ``success`` with its ``evm`` and
+   ``prestate`` statements, its payload pass ``verify_payload``, its
+   ``kzg_proof`` equal the native request's and its ``input`` the
+   instance hash of the port's host path (``Raiko(..., None).get_output``),
+   and B1, B2, B4, intt, ntt_coset, poseidon2_hash_rows and
+   poseidon2_merkle must all have launched; one ``statement`` line per
+   statement (tables, wall seconds, the prover's stage times and the
+   transcript's, the host time outside them, launches; the ``evm`` line
+   its trees, covered/total, its share of the block and its quotient's
+   share of its trees' stage time) and one
+   ``block_prove`` line per block (seconds, verification seconds, peak
+   device memory, payload bytes); no JAX or ``raiko_tpu`` module was
    loaded.  Each statement's device time is ``--profile``'s: the
    profiler's bookkeeping would lengthen this run.
 
@@ -126,8 +137,10 @@ last two lines are the kernels' summary and the device line.
 commitment, and puts five commitments, one warm keccak-chunk STARK proof
 (device and wall time of each prover stage), each of three
 served-path requests (through the port's orchestrator) and the first of
-those blocks proven as a ``tpu_stark`` request (each statement's device
-and wall time) under
+those blocks proven as a ``tpu_stark`` request under the default config
+at ``BLOCK_SERVED_FRAMES`` call trees, one tree after another (each
+statement's device and wall time; its quotient stage's wall and device
+time and kernel launches, per EVM tree too) under
 torch.profiler: device time against wall time, launches, the top kernels
 and the device time of each of the port's own kernels.  The profiler's tables
 go to DIR/profile_*.txt.
@@ -196,11 +209,20 @@ STARK = ("intt", "ntt_coset", "poseidon2_hash_rows", "poseidon2_merkle")
 OPS = ("ec_double", "ntt_mxu", "keccak_f1600", "sha256_compress", "ntt", "poseidon2_compress")
 # the proofs of phase stark_prove, each against its JAX golden
 PROOF_CASES = ("fib", "transcript", "keccak_chunk")
-# phase block_prove: the tpu_stark backend with its keccak-DAG statements
-# (the EVM frame statement is not ported yet), on the golden's 10-tx block
-# and a served 100-tx block; the served block must launch every kernel here
-BLOCK_ARGS = {"evm_statement": False, "proof_cache": False}
+# phase block_prove: the tpu_stark backend under the default config (every
+# statement, the EVM frames and their prestate binding among them), on the
+# golden's 10-tx block and a served 100-tx block; the served block must
+# launch every kernel here
+BLOCK_GOLDEN = "block_10tx_evm"
+BLOCK_ARGS = {"proof_cache": False}
 BLOCK_SERVED_TXS = 100
+# a cut of depth: the served block proves its first BLOCK_SERVED_FRAMES
+# covered call trees (the default max_evm_frames is 64; the block has 90
+# candidates), so that the run stays inside its time: at 64 trees the
+# request took 369 s and its verification 391 s (NVIDIA H100 80GB HBM3,
+# 700 W), about 4.7 s and 5.2 s a tree
+BLOCK_SERVED_FRAMES = 20
+BLOCK_SERVED_ARGS = {**BLOCK_ARGS, "max_evm_frames": BLOCK_SERVED_FRAMES}
 BLOCK = SERVED + STARK
 # The state-trie statement's message order follows the reference
 # preflight's set of accessed accounts, whose order follows Python's string
@@ -1286,18 +1308,38 @@ class StatementMeter:
 
 
 def statement_tables(payload: dict) -> dict:
-    """slot -> the number of STARK tables of each statement in a payload."""
+    """slot -> the number of STARK tables of each statement in a payload
+    (``evm``: every table of every call tree; ``prestate``: its keccak
+    batches)."""
     out = {"stark": 1}
     for slot in ("mpt", "tx_mpt", "receipts_mpt", "chain"):
         if slot in payload:
             out[slot] = len(payload[slot].get("starks", payload[slot].get("stark_chunks", [])))
+    if "evm" in payload:
+        out["evm"] = sum(len(tree["starks"]) for tree in payload["evm"]["frames"])
+    if "prestate" in payload:
+        out["prestate"] = len(payload["prestate"]["keccak"]["stark_chunks"])
     return out
 
 
 def emit_statements(block: str, payload: dict, meter: StatementMeter, device_ms: dict | None) -> None:
+    """One ``statement`` line per statement; the ``evm`` line also gives
+    its call trees, covered and total candidates, its share of the block's
+    statements' wall time, and its quotient stage's share of its trees'
+    stage time.  The trees prove on a thread pool, so the stage spans of
+    two trees overlap and sum to more than the statement's wall time:
+    the two shares multiply to the quotient's share of the block."""
     tables = statement_tables(payload)
+    block_s = sum(row["wall_s"] for row in meter.rows.values())
     for slot, row in meter.rows.items():
-        emit("statement", block=block, statement=slot, tables=tables.get(slot, 0), **row,
+        extra = {}
+        if slot == "evm" and "evm" in payload:
+            evm = payload["evm"]
+            extra = {"trees": len(evm["frames"]), "covered": evm["covered"], "total": evm["total"],
+                     "share_of_block": row["wall_s"] / block_s,
+                     "quotient_share_of_stages": row["stages_ms"].get("quotient_ms", 0.0)
+                     / sum(row["stages_ms"].values())}
+        emit("statement", block=block, statement=slot, tables=tables.get(slot, 0), **row, **extra,
              device_ms=None if device_ms is None else device_ms.get(slot, 0.0))
 
 
@@ -1314,30 +1356,87 @@ def statement_device_ms(prof) -> dict:
     return out
 
 
-def block_request(device) -> tuple:
-    """(Raiko, guest input, output) of block 1 as a ``tpu_stark`` request."""
+def statement_quotient(prof) -> dict:
+    """Per ``tpu_stark.*`` range of a profile: the wall ms, device ms and
+    CUDA kernel launches (the runtime's launch calls, counted on the host)
+    inside its ``stark.quotient`` ranges (the profiling thread only)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    launches = sorted(e.time_range.start for e in cpu if "LaunchKernel" in e.name)
+    quotients = [e for e in cpu if e.name == "stark.quotient"]
+    out: dict = {}
+    for st in (e for e in cpu if e.name.startswith("tpu_stark.")):
+        row = out.setdefault(st.name.removeprefix("tpu_stark."), {"wall_ms": 0.0, "device_ms": 0.0, "launches": 0})
+        for q in quotients:
+            if st.time_range.start <= q.time_range.start and q.time_range.end <= st.time_range.end:
+                row["wall_ms"] += q.cpu_time_total / 1e3
+                row["device_ms"] += q.device_time_total / 1e3
+                row["launches"] += (bisect.bisect_right(launches, q.time_range.end)
+                                    - bisect.bisect_left(launches, q.time_range.start))
+    return out
+
+
+def block_request(device, args: dict) -> tuple:
+    """(Raiko, guest input, output) of block 1 as a ``tpu_stark`` request
+    with prover args `args`."""
     from raiko_tpu_torch.chain import SupportedChainSpecs
     from raiko_tpu_torch.core.interfaces import ProofRequest, ProofType
     from raiko_tpu_torch.core.orchestrator import Raiko
 
     req = ProofRequest(block_number=1, network="taiko_a7", proof_type=ProofType.TPU_STARK,
-                       prover_args=dict(BLOCK_ARGS))
+                       prover_args=dict(args))
     raiko = Raiko(SupportedChainSpecs(), req, device)
     gi = raiko.generate_input()
     return raiko, gi, raiko.get_output(gi)
 
 
+def phase_host_poseidon2() -> dict:
+    """The host Poseidon2 that the transcript and the verifier run: the C
+    library (``ops/poseidon2_host.py``), which must load (no fallback),
+    against ``host_permute`` on 200 seeded states and the edge states,
+    with both times per permutation on this machine's host."""
+    import numpy as np
+
+    from raiko_tpu_torch.fields import babybear as bb
+    from raiko_tpu_torch.ops import poseidon2 as p2
+    from raiko_tpu_torch.ops import poseidon2_host as p2h
+
+    implementation = p2h.implementation()
+    states = np.random.default_rng(SEED).integers(0, bb.P, (200, 16)).tolist() + [[0] * 16, [bb.P - 1] * 16]
+    equal = all(p2h.permute(st) == p2.host_permute(st) for st in states)
+    t0 = time.perf_counter()
+    for st in states:
+        p2h.permute(st)
+    c_us = (time.perf_counter() - t0) / len(states) * 1e6
+    t0 = time.perf_counter()
+    for st in states[:50]:
+        p2.host_permute(st)
+    python_us = (time.perf_counter() - t0) / 50 * 1e6
+    row = {"implementation": implementation, "equal_python": equal, "c_us_per_permutation": c_us,
+           "python_us_per_permutation": python_us}
+    emit("host_poseidon2", **row)
+    if not equal:
+        raise AssertionError("the C host Poseidon2 differs from host_permute")
+    return row
+
+
 def phase_block_prove() -> dict:
-    """The tpu_stark backend on the card: the golden's 10-tx block through
-    ``Raiko(..., "cuda").prove`` against the JAX payload, then a 100-tx
-    block served as a v2 ``tpu_stark`` request; returns the served
-    request's launches."""
+    """The tpu_stark backend on the card under the default config: the
+    golden's 10-tx block through ``Raiko(..., "cuda").prove`` against the
+    JAX payload, then a 100-tx block served as a v2 ``tpu_stark`` request;
+    the transcript and the verifier must run the C host Poseidon2.
+    Returns the served request's launches."""
+    import copy
     import hashlib
 
     import torch
 
     from raiko_tpu_torch import kernels
     from raiko_tpu_torch.host.cli import BackgroundServer
+    from raiko_tpu_torch.ops import poseidon2_host as p2h
     from raiko_tpu_torch.provers import tpu_stark
     from raiko_tpu_torch.testing.workload import build_chain
 
@@ -1345,11 +1444,13 @@ def phase_block_prove() -> dict:
         return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
 
     t_phase = time.perf_counter()
-    with open(os.path.join(ROOT, "tests", "golden", "stark_block_10tx.json")) as f:
+    host_p2 = phase_host_poseidon2()
+    p2h.CALLS.reset()
+    with open(os.path.join(ROOT, "tests", "golden", f"stark_{BLOCK_GOLDEN}.json")) as f:
         g = json.load(f)
     cuda = torch.device("cuda")
     build_chain(1, g["inputs"]["txs"], cuda)
-    raiko, gi, out = block_request(cuda)
+    raiko, gi, out = block_request(cuda, BLOCK_ARGS)
     if gi.block_header.hash().hex() != g["block_hash"] or out.hash.hex() != g["instance_hash"]:
         raise AssertionError("the 10-tx block or its instance hash differs from the JAX golden's")
     torch.cuda.synchronize()
@@ -1359,18 +1460,26 @@ def phase_block_prove() -> dict:
     launches = kernels.LAUNCHES.snapshot()
     payload = json.loads(proof.proof)
     verified, verify_ms = once_ms(lambda: tpu_stark.verify_payload(payload, cuda))
-    bad = dict(payload, mpt=dict(payload["mpt"], state_root=hashlib.sha256(b"another root").hexdigest()))
-    tampered_rejected = not tpu_stark.verify_payload(bad, cuda)
+    # the first covered frame claims one gas less than it has left
+    bad = copy.deepcopy(payload)
+    bad["evm"]["frames"][0]["frames"][0]["gas_f"] -= 1
+    evm = payload.get("evm", {})
     checks = {
         "equal_golden": sha(payload) == g["sha256"],
+        "statements_equal_golden": {slot: sha(payload[slot]) for slot in sorted(payload)} == g["statements"],
+        "evm_covered": evm.get("covered") == g["evm_covered"] == 9,
+        "prestate": "prestate" in payload,
         "input_equal_golden": proof.input_hash == g["input"],
         "kzg_proof_equal_golden": proof.kzg_proof == g["kzg_proof"],
         "verified": verified,
-        "tampered_root_rejected": tampered_rejected,
+        "tampered_gas_rejected": not tpu_stark.verify_payload(bad, cuda),
     }
+    p2_calls = p2h.CALLS.snapshot()
     emit_statements("10tx", payload, meter, None)
-    emit("block_prove", block="10tx", txs=len(gi.transactions), prove_s=ms / 1e3,
-         verify_s=verify_ms / 1e3, tables=sum(statement_tables(payload).values()), launches=launches,
+    emit("block_prove", block="10tx", txs=len(gi.transactions), prover_args=BLOCK_ARGS, prove_s=ms / 1e3,
+         verify_s=verify_ms / 1e3, tables=sum(statement_tables(payload).values()),
+         evm_trees=len(evm.get("frames", [])), launches=launches, payload_bytes=len(proof.proof),
+         host_poseidon2=host_p2["implementation"], host_poseidon2_calls=sum(p2_calls.values()),
          sha256=sha(payload), golden_sha256=g["sha256"], jax_cpu_prove_s=g["jax_cpu_prove_seconds"], **checks)
     if not all(checks.values()):
         differ = [slot for slot, want in g["statements"].items() if sha(payload.get(slot)) != want]
@@ -1378,6 +1487,8 @@ def phase_block_prove() -> dict:
     missing = [k for k in STARK if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"10-tx block: kernels not launched by the proof: {missing}")
+    if not p2_calls.get("raiko_p2_absorb") or not p2_calls.get("raiko_p2_row_path_ok"):
+        raise AssertionError(f"the transcript or the verifier did not run the C host Poseidon2: {p2_calls}")
 
     # the 100-tx block served as a v2 tpu_stark request, then as native
     port = _free_port()
@@ -1390,7 +1501,7 @@ def phase_block_prove() -> dict:
             # the request's prover args sit beside its fields (ProofRequest.from_opt)
             body = {"block_number": 1, "network": "taiko_a7", "proof_type": proof_type}
             if proof_type == "tpu_stark":
-                body.update(BLOCK_ARGS)
+                body.update(BLOCK_SERVED_ARGS)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             kernels.LAUNCHES.reset()
@@ -1410,17 +1521,23 @@ def phase_block_prove() -> dict:
     stark_proof, seconds, launches, peak_gb, meter = served["tpu_stark"]
     payload = json.loads(stark_proof["proof"])
     verified, verify_ms = once_ms(lambda: tpu_stark.verify_payload(payload, cuda))
-    _, _, host_out = block_request(None)
+    _, _, host_out = block_request(None, BLOCK_SERVED_ARGS)
+    evm = payload.get("evm", {})
     checks = {
         "verified": verified,
+        "evm": 0 < len(evm.get("frames", [])) == evm.get("covered") <= BLOCK_SERVED_FRAMES,
+        "prestate": "prestate" in payload,
         "kzg_proof_equal_native": stark_proof["kzg_proof"] == served["native"][0]["kzg_proof"],
         "input_equal_host": stark_proof["input"] == "0x" + host_out.hash.hex(),
     }
     emit_statements("100tx", payload, meter, None)
-    emit("block_prove", block="100tx", served=True, seconds_per_request=seconds, verify_s=verify_ms / 1e3,
-         tables=sum(statement_tables(payload).values()), launches=launches, peak_device_gb=peak_gb,
+    emit("block_prove", block="100tx", served=True, prover_args=BLOCK_SERVED_ARGS,
+         max_evm_frames=BLOCK_SERVED_FRAMES, seconds_per_request=seconds, verify_s=verify_ms / 1e3,
+         tables=sum(statement_tables(payload).values()), evm_trees=len(evm.get("frames", [])),
+         evm_covered=evm.get("covered"), evm_total=evm.get("total"), launches=launches, peak_device_gb=peak_gb,
          payload_bytes=len(stark_proof["proof"]), native_seconds=served["native"][1],
-         phase_s=time.perf_counter() - t_phase, **checks)
+         host_poseidon2_calls=sum(p2h.CALLS.snapshot().values()), phase_s=time.perf_counter() - t_phase,
+         **checks)
     if not all(checks.values()):
         raise AssertionError(f"served 100-tx tpu_stark block: {checks}")
     missing = [k for k in BLOCK if launches.get(k, 0) <= 0]
@@ -1537,17 +1654,32 @@ def phase_profile(out_dir: str, n_blocks: int, n_txs: int) -> None:
         save(prof, f"profile_request{blk}.txt")
 
     # block 1 as a tpu_stark request (phase block_prove serves it): the
-    # device and wall time of each statement
-    raiko, gi, out = block_request(cuda)
+    # device and wall time of each statement.  The profiler sees the ranges
+    # of this thread only, so the EVM statement proves its trees here, one
+    # after another, instead of on its thread pool.
+    raiko, gi, out = block_request(cuda, BLOCK_SERVED_ARGS)
     kernels.LAUNCHES.reset()
-    with StatementMeter() as meter, profile(activities=activities) as prof:
-        proof, wall_ms = once_ms(lambda: raiko.prove(gi, out))
+    workers = os.environ.get("RAIKO_FRAME_WORKERS")
+    os.environ["RAIKO_FRAME_WORKERS"] = "1"
+    try:
+        with StatementMeter() as meter, profile(activities=activities) as prof:
+            proof, wall_ms = once_ms(lambda: raiko.prove(gi, out))
+    finally:
+        if workers is None:
+            os.environ.pop("RAIKO_FRAME_WORKERS")
+        else:
+            os.environ["RAIKO_FRAME_WORKERS"] = workers
     dev_ms, top, ours = device_ms(prof)
     payload = json.loads(proof.proof)
     emit_statements("100tx", payload, meter, statement_device_ms(prof))
+    quotient = statement_quotient(prof)
+    trees = len(payload.get("evm", {}).get("frames", []))
     emit("profile_block_prove", block=1, txs=len(gi.transactions), wall_ms=wall_ms, device_ms=dev_ms,
          busy_share=dev_ms / wall_ms, tables=sum(statement_tables(payload).values()),
-         launches=kernels.LAUNCHES.snapshot(), top_device_ms=top, kernels_device_ms=ours)
+         launches=kernels.LAUNCHES.snapshot(), top_device_ms=top, kernels_device_ms=ours,
+         quotient=quotient, evm_trees=trees,
+         evm_quotient_launches_per_tree=quotient.get("evm", {}).get("launches", 0) / max(trees, 1),
+         evm_quotient_share_of_block=quotient.get("evm", {}).get("wall_ms", 0.0) / wall_ms)
     save(prof, "profile_block_prove.txt")
 
 

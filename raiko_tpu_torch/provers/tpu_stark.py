@@ -24,17 +24,23 @@ storage tries (keccak-mpt-v2 containment, or the v1 preimage batches),
 the tx and receipts tries, the receipts link and the ancestor chain.  The
 payload and its keys are the reference's, byte for byte.
 
-Not ported yet: the EVM frame statement (with its prestate binding) and
-the recursion seal.  A config that asks for either, where the block has
-what it would prove, is refused with ``GuestError``: a payload without
-the statement would differ from the reference's for the same config.
-``verify_payload`` rejects a payload that carries ``evm``, ``prestate``
-or ``seal``.
+The EVM frame statement proves the block's covered call trees with the
+EVM execution tables (stark/airs/evm_air.py), and the prestate binding
+(provers/prestate.py) ties their storage originals and account records
+to the parent state.
+
+Not ported yet: the recursion seal.  A config that asks for it is refused
+with ``GuestError``: a payload without the statement would differ from
+the reference's for the same config.  ``verify_payload`` rejects a
+payload that carries ``seal``.
 
 Each statement is a ``Measurement`` span (``tpu_stark.reexecute``,
 ``tpu_stark.stark``, ``tpu_stark.mpt``, ``tpu_stark.tx_mpt``,
-``tpu_stark.receipts_mpt``, ``tpu_stark.chain``) and a ``torch.profiler``
-range of the same name.
+``tpu_stark.receipts_mpt``, ``tpu_stark.chain``, ``tpu_stark.evm``,
+``tpu_stark.prestate``) and a ``torch.profiler`` range of the same name.
+The EVM statement proves its trees on a thread pool, so the spans of the
+prover's stages inside it overlap, and each stage's closing
+``torch.cuda.synchronize`` waits for the other tree's work too.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ DOMAIN_TAG = 0x52545031  # "RTP1"
 NUM_BLOCKS = 4
 
 # the payload slots of the statements this module does not prove yet
-NOT_PORTED = ("evm", "prestate", "seal")
+NOT_PORTED = ("seal",)
 
 
 def transcript_blocks(instance_hash: bytes, num_blocks: int = NUM_BLOCKS):
@@ -89,15 +95,9 @@ def _statement(slot: str):
         yield
 
 
-def refuse_unported(config: dict, collect: dict) -> None:
+def refuse_unported(config: dict) -> None:
     """Raise ``GuestError`` where the reference would prove a statement
-    that the port has not ported yet (the EVM frames, whose prestate
-    binding comes with them, and the seal)."""
-    if config.get("evm_statement", True) and collect.get("frames"):
-        raise GuestError(
-            "tpu_stark: the EVM frame statement is not ported yet; "
-            "send evm_statement: false"
-        )
+    that the port has not ported yet (the seal)."""
     if config.get("seal"):
         raise GuestError("tpu_stark: the recursion seal is not ported yet")
 
@@ -114,7 +114,7 @@ class TpuStarkProver(Prover):
             ih = pi.instance_hash()
         if ih != output.hash:
             raise GuestError("instance hash mismatch in tpu_stark guest")
-        refuse_unported(config, collect)
+        refuse_unported(config)
         # receipt cache (reference bonsai.rs:104-151): a prior proof of
         # the same statement under the same config short-circuits proving
         cached = proof_cache.load_proof(config, "tpu_stark", ih)
@@ -185,6 +185,44 @@ class TpuStarkProver(Prover):
         ):
             with _statement("chain"):
                 payload["chain"] = prove_header_chain(collect["header_chain"], device)
+        # EVM execution statement: prove covered top-level call frames
+        # with the zkEVM tables (stark/airs/evm_air.py), the analog of
+        # the zkVM guests' re-execution proof (reference
+        # provers/risc0/guest/src/main.rs:15-29)
+        if config.get("evm_statement", True) and collect.get("frames"):
+            with _statement("evm"):
+                evm = prove_evm_frames(
+                    collect["frames"],
+                    device,
+                    max_frames=int(config.get("max_evm_frames", 64)),
+                    max_steps=int(config.get("max_evm_steps", 65536)),
+                )
+            if evm is not None:
+                payload["evm"] = evm
+                # bind the frames' storage originals AND code/account
+                # records to the parent state (provers/prestate.py);
+                # requires the chain statement for the parent-header
+                # anchor; produced for every covered frame set (code
+                # binding), not just storage-touching ones.
+                if "chain" in payload:
+                    from .prestate import prove_prestate
+
+                    try:
+                        with _statement("prestate"):
+                            pre = prove_prestate(collect, device)
+                    except Exception as e:  # pragma: no cover
+                        # a prestate failure must not kill the block
+                        # proof; the payload stays verifiable-as-absent
+                        # (verify_prestate_binding rejects it if frames
+                        # touch storage, so this is visible, not silent)
+                        import logging
+
+                        logging.getLogger(__name__).warning(
+                            "prestate binding failed: %s", e
+                        )
+                        pre = None
+                    if pre is not None:
+                        payload["prestate"] = pre
         proof_cache.save_proof(config, "tpu_stark", ih, payload)
         return Proof(
             proof=json.dumps(payload),
@@ -469,6 +507,91 @@ def _prove_containment(
     }
 
 
+def prove_evm_frames(
+    candidates: list[dict],
+    device,
+    max_frames: int = 64,
+    max_steps: int = 65536,
+    workers: int | None = None,
+) -> dict | None:
+    """Prove the block's covered top-level call frames with the EVM
+    execution tables.  A candidate is provable when the covered stack
+    machine replays it exactly (same halt, same gas left); coverage is
+    reported explicitly (covered/total), mirroring the MPT statement's
+    truncation discipline — frames outside coverage are skipped, never
+    mis-proven.
+
+    Each tx's call tree is an independent proof, proven on ``device``
+    (None: the CPU), so trees prove on a thread pool (``workers``,
+    default ``RAIKO_FRAME_WORKERS`` or 2): one tree's host-side work
+    (trace building, Fiat-Shamir) overlaps another's device launches.
+    ``pool.map`` keeps the candidates' order, so the payload's frame
+    order is deterministic."""
+    import os as _os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..stark.airs import evm_air as ea
+
+    fts = []  # (tx_index, FrameTrace)
+    for cand in candidates:
+        if len(fts) == max_frames:
+            break
+        if not cand.get("success") or cand["gas"] >= 1 << 28:
+            continue
+        code = cand["code"]
+        env = ea.FrameEnv(
+            codesize=len(code),
+            **{
+                k: int(cand.get(k, 0))
+                for k in ea.ENV_OPS
+                if k != "codesize"
+            },
+        )
+        try:
+            ft = ea.execute_frame(
+                code,
+                env,
+                int(cand["gas"]),
+                max_steps,
+                calldata=cand.get("calldata"),
+                storage=cand.get("storage"),
+                warm_slots=set(cand.get("warm_slots", ())),
+                world=cand.get("world") or {},
+                warm_addresses=set(cand.get("warm_addresses", ())),
+                acct_ctx=cand.get("acct_ctx") or {},
+                balances=dict(cand.get("balances") or {}),
+                nonces=dict(cand.get("nonces") or {}),
+            )
+        except ea.UncoveredFrame:
+            continue
+        if ft.gas_f != cand["gas_left"]:
+            continue  # replay diverged from the interpreter: not covered
+        fts.append((int(cand.get("tx_index", -1)), ft))
+    if not fts:
+        return None
+    if workers is None:
+        workers = int(_os.environ.get("RAIKO_FRAME_WORKERS", "2"))
+
+    def _prove(item):
+        txi, ft = item
+        p = ea.prove_frame_trace(ft, _stark_device(device))
+        if txi >= 0:
+            p["tx_index"] = txi
+        return p
+
+    if workers > 1 and len(fts) > 1:
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            frames = list(pool.map(_prove, fts))
+    else:
+        frames = [_prove(item) for item in fts]
+    return {
+        "kind": "evm-frames-v1",
+        "total": len(candidates),
+        "covered": len(frames),
+        "frames": frames,
+    }
+
+
 def verify_receipts_link(payload: dict) -> bool:
     """Receipts-root linkage: re-derive every receipt (status, cumulative
     gas, bloom, logs) from the published fields, rebuild the index trie,
@@ -547,6 +670,17 @@ def verify_receipts_link(payload: dict) -> bool:
     except (KeyError, ValueError, TypeError):
         return False
     return True
+
+
+def verify_evm_frames_payload(evm: dict, device) -> bool:
+    from ..stark.airs import evm_air as ea
+
+    if evm.get("kind") != "evm-frames-v1":
+        return False
+    frames = evm.get("frames", [])
+    if not frames or len(frames) != evm.get("covered"):
+        return False
+    return all(ea.verify_frame_payload(f, _stark_device(device)) for f in frames)
 
 
 def mpt_v2_group(mpt: dict, state_root: bytes | None = None):
@@ -685,7 +819,17 @@ def verify_payload(payload: dict, device) -> bool:
     for slot in ("tx_mpt", "receipts_mpt", "chain"):
         if slot in payload and not verify_mpt_v2_payload(payload[slot], device):
             return False
-    return verify_receipts_link(payload)
+    if not verify_receipts_link(payload):
+        return False
+    if "evm" in payload:
+        if not verify_evm_frames_payload(payload["evm"], device):
+            return False
+        # storage originals must be bound to the proven pre-state
+        from .prestate import verify_prestate_binding
+
+        if not verify_prestate_binding(payload, device):
+            return False
+    return True
 
 
 register(TpuStarkProver())

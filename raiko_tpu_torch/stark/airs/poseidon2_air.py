@@ -26,6 +26,7 @@ import numpy as np
 
 from ...fields import babybear as bb
 from ...ops import poseidon2 as p2
+from ...ops import poseidon2_host as p2h
 from ..air import Air, ConstraintBuilder
 
 ROWS_PER_PERM = 32
@@ -95,7 +96,7 @@ class Poseidon2TranscriptAir(Air):
                 (state[c] + (blk[c] if c < RATE else 0)) % bb.P
                 for c in range(WIDTH)
             ]
-            state = p2.host_permute(state)
+            state = p2h.permute(state)
         return state
 
     # -- fixed columns ----------------------------------------------------

@@ -16,14 +16,15 @@ import numpy as np
 import torch
 
 from ..fields import babybear as bb
-from ..ops import poseidon2 as p2
+from ..ops import poseidon2_host as p2h
 
 
 class Channel:
     """State lives HOST-SIDE in standard form and permutes with the pinned
-    host Poseidon2 (bit-equal to the device kernel): a transcript makes
-    dozens-to-thousands of tiny sequential sponge calls (grinding alone
-    ~2^10), each of which would otherwise be a device round-trip."""
+    host Poseidon2 (bit-equal to the device kernel), in C
+    (ops/poseidon2_host.py): a transcript makes dozens-to-thousands of
+    tiny sequential sponge calls (grinding alone ~2^10), each of which
+    would otherwise be a device round-trip."""
 
     def __init__(self):
         self._state = [0] * 16  # standard form
@@ -57,24 +58,16 @@ class Channel:
         """Permute pending absorptions into the state (rate 8)."""
         pend = self._pending
         self._pending = []
-        for off in range(0, len(pend), 8):
-            chunk = pend[off : off + 8]
-            st = list(self._state)
-            for i, v in enumerate(chunk):
-                st[i] = (st[i] + v) % bb.P
-            self._state = p2.host_permute(st)
+        self._state = p2h.absorb(self._state, pend)
 
     # -- squeezing ------------------------------------------------------
     def _squeeze_elems(self, n: int) -> list[int]:
         if self._pending:
             self._flush()
-        out: list[int] = []
-        while len(out) < n:
-            out.extend(int(v) for v in self._state[:8])
-            # always advance the state after reading a block so consecutive
-            # squeezes are independent
-            self._state = p2.host_permute(self._state)
-        return out[:n]
+        # the state advances after every block read, so consecutive
+        # squeezes are independent
+        out, self._state = p2h.squeeze(self._state, n)
+        return out
 
     def challenge(self) -> int:
         """One base-field challenge."""
@@ -108,20 +101,13 @@ class Channel:
         The nonce lands at a fixed position of the final rate block, so
         every prior block is nonce-independent: process them once, then
         batch the final block + squeeze over candidate nonces with the
-        numpy permutation (bit-equal to host_permute) and take the
+        batch permutation (bit-equal to host_permute) and take the
         SMALLEST qualifying nonce — identical output to the scalar loop.
         """
         pend = list(self._pending)
         # state after the nonce-independent full blocks
-        st = list(self._state)
-        k = len(pend)
-        full = (k // 8) * 8
-        for off in range(0, full, 8):
-            blk = pend[off : off + 8]
-            s = list(st)
-            for i, v in enumerate(blk):
-                s[i] = (s[i] + v) % bb.P
-            st = p2.host_permute(s)
+        full = (len(pend) // 8) * 8
+        st = p2h.absorb(self._state, pend[:full])
         tail = pend[full:]  # the nonce joins this block at index len(tail)
         base_state = np.array(st, dtype=np.uint64)
         for i, v in enumerate(tail):
@@ -133,7 +119,7 @@ class Channel:
             nonces = np.arange(start, start + batch, dtype=np.uint64)
             states = np.tile(base_state, (batch, 1))
             states[:, pos] = (states[:, pos] + nonces % np.uint64(bb.P)) % np.uint64(bb.P)
-            out = p2.host_permute_batch(states)[:, 0]
+            out = p2h.permute_batch(states)[:, 0]
             hits = np.nonzero((out >> np.uint64(31 - bits)) == 0)[0]
             if hits.size:
                 nonce = int(nonces[hits[0]])

@@ -30,6 +30,7 @@ import torch
 from ..fields import babybear as bb
 from ..fields import babybear_ext as ef
 from ..ops import merkle, ntt, poseidon2 as p2
+from ..ops import poseidon2_host as p2h
 from .channel import Channel
 
 FOLD_ARITY = 2
@@ -228,13 +229,8 @@ def ef_pair_to_row(pair) -> np.ndarray:
 def _verify_leaf(leaf_row, index, path, root) -> bool:
     """Host-side leaf + path check (8-wide FRI leaves: one host permutation
     each; a device call per leaf would cost ~150 ms through the relay)."""
-    leaf_std = bb.np_from_mont(np.asarray(leaf_row)).tolist()
-    cur = p2.host_hash_row(leaf_std)
-    for sib in path:
-        sib = [int(v) % bb.P for v in sib]
-        cur = p2.host_compress(sib, cur) if index & 1 else p2.host_compress(cur, sib)
-        index >>= 1
-    return cur == [int(v) % bb.P for v in root]
+    leaf_std = bb.np_from_mont(np.asarray(leaf_row))
+    return p2h.row_path_ok(leaf_std, index, path, root)
 
 
 def _final_poly_ok(final_values, log_m: int, shift: int) -> bool:

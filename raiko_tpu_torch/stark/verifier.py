@@ -19,6 +19,7 @@ from .. import device as device_mod
 from ..fields import babybear as bb
 from ..fields import babybear_ext as ef
 from ..ops import poseidon2 as p2
+from ..ops import poseidon2_host as p2h
 from . import fri
 from .air import Air, ConstraintBuilder
 from ..utils.measurement import Measurement
@@ -133,29 +134,25 @@ def _row_to_mont(row: list[int]) -> np.ndarray:
 
 
 def _hash_rows_batch(rows: list[list[int]], device: torch.device) -> list[list[int]]:
-    """Leaf digests (standard form) for many rows: ONE device call for wide
-    rows (a 4160-wide row is ~520 host permutations), pure host for narrow
-    ones."""
+    """Leaf digests (standard form) for many rows: ONE card call for wide
+    rows (a 4160-wide row is ~520 host permutations), the host library
+    for narrow ones and wherever the device is the CPU (where it is faster
+    than the torch sponge, and bit-equal to it)."""
     w = len(rows[0])
-    if w <= 64:
-        return [p2.host_hash_row(r) for r in rows]
+    if w <= 64 or device.type == "cpu":
+        return [p2h.hash_row(r) for r in rows]
     arr = ((np.array(rows, dtype=np.uint64) * bb.R) % bb.P).astype(np.uint32)
     dig = convert.bb_to_numpy(bb.from_mont(p2.hash_rows(convert.words_from_numpy(arr, device))))
     return [d.tolist() for d in dig]
 
 
 def _host_path_ok(leaf_std, index: int, path, root) -> bool:
-    """Merkle path walk on standard-form ints (host Poseidon2)."""
-    cur = [int(v) % bb.P for v in leaf_std]
-    for sib in path:
-        sib = [int(v) % bb.P for v in sib]
-        cur = p2.host_compress(sib, cur) if index & 1 else p2.host_compress(cur, sib)
-        index >>= 1
-    return cur == [int(v) % bb.P for v in root]
+    """Merkle path walk on standard-form ints (host Poseidon2 in C)."""
+    return p2h.path_ok(leaf_std, index, path, root)
 
 
 def _check_merkle(row, index, path, root) -> bool:
-    return _host_path_ok(p2.host_hash_row(list(row)), index, path, root)
+    return p2h.row_path_ok(list(row), index, path, root)
 
 
 def verify(air: Air, proof: StarkProof, device="cuda") -> bool:

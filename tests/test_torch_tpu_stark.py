@@ -12,8 +12,9 @@ CPU, equals the JAX payload of ``tools/make_stark_goldens.py``
 sort_keys=True)``, and the port's verifier accepts it and rejects a wrong
 root and tampered block counts.  The proof cache is the port's copy of
 ``tests/test_proof_cache.py``; the registry returns the port's prover and
-still refuses ``tpu_shard``; a config that asks for a statement the port
-has not ported (the EVM frames, the seal) is refused.  The ``slow`` test
+still refuses ``tpu_shard``; a config that asks for the statement the port
+has not ported (the seal) is refused, and a request with EVM frames
+reaches the prover.  The ``slow`` test
 proves the golden's 10-tx block on the CPU and the ``cuda`` test on a card,
 each in a subprocess under the golden's ``PYTHONHASHSEED``; each payload
 must hash as the JAX golden's (``stark_block_10tx.json``).
@@ -312,13 +313,24 @@ def test_registry_returns_the_port_prover():
 
 
 @pytest.mark.parametrize(
-    "config, frames",
-    [({}, [{"code": b""}]), ({"evm_statement": True}, [{"code": b""}]), ({"evm_statement": False, "seal": True}, [])],
+    "config, frames, refused",
+    [
+        ({}, [{"code": b""}], False),
+        ({"evm_statement": True}, [{"code": b""}], False),
+        ({"evm_statement": False, "seal": True}, [], True),
+    ],
 )
-def test_unported_statements_are_refused(monkeypatch, config, frames):
+def test_unported_statements_are_refused(monkeypatch, config, frames, refused):
+    """Only the seal is refused: a request with frames, under the default
+    config or with the EVM statement asked for, reaches the prover (the
+    stubbed transcript prover raises that it ran)."""
     _stub_instance(monkeypatch, {"frames": frames})
-    with pytest.raises(GuestError, match="not ported yet"):
-        ts.TpuStarkProver().run(object(), _Out(), config, base.ProverCtx(device=None))
+    if refused:
+        with pytest.raises(GuestError, match="not ported yet"):
+            ts.TpuStarkProver().run(object(), _Out(), config, base.ProverCtx(device=None))
+    else:
+        with pytest.raises(AssertionError, match="the prover ran"):
+            ts.TpuStarkProver().run(object(), _Out(), config, base.ProverCtx(device=None))
 
 
 def test_no_frames_needs_no_evm_statement(monkeypatch):
@@ -330,7 +342,8 @@ def test_no_frames_needs_no_evm_statement(monkeypatch):
 
 
 def test_verify_payload_rejects_unported_slots():
-    for slot in ("evm", "prestate", "seal"):
+    assert ts.NOT_PORTED == ("seal",)
+    for slot in ts.NOT_PORTED:
         assert not ts.verify_payload({"kind": "poseidon2-transcript-v1", slot: {}}, "cpu")
     assert not ts.verify_payload({"kind": "something-else"}, "cpu")
 

@@ -4,6 +4,7 @@
     JAX_PLATFORMS=cpu python tools/make_stark_goldens.py            # every case
     JAX_PLATFORMS=cpu python tools/make_stark_goldens.py fib affine # some
     JAX_PLATFORMS=cpu python tools/make_stark_goldens.py block_10tx # minutes
+    JAX_PLATFORMS=cpu python tools/make_stark_goldens.py block_10tx_evm  # half an hour
 
 Each case proves one AIR with ``raiko_tpu.stark.prover`` on the CPU, checks
 the proof with ``raiko_tpu.stark.verifier.verify_tables`` (a golden that
@@ -20,9 +21,9 @@ path (``RAIKO_EAGER_QUOTIENT=1``, the same proof bytes as the jitted path):
 XLA:CPU compiles the 4,160-column AIR's jitted quotient far too slowly.
 The golden records which path made it (``eager_quotient``).
 
-Two cases prove ``tpu_stark`` payloads instead of one AIR, both with the
-keccak cases' host quotient, and are written only if
-``raiko_tpu.provers.tpu_stark.verify_payload`` accepts them:
+Four cases prove payloads instead of one AIR, with the keccak cases'
+host quotient (the EVM tables evaluate theirs on the host anyway), and
+are written only if the JAX package's verifier accepts them:
 
 - ``containment_chain``: three messages, each holding the keccak digest
   of the next, as one ``_prove_containment`` payload (the sponge, byte and
@@ -36,7 +37,17 @@ keccak cases' host quotient, and are written only if
   that drifts shows there before any proof is compared), the instance
   hash, the KZG proof, the sha256 of ``json.dumps(payload,
   sort_keys=True)`` and of each statement, each statement's table count,
-  and the JAX CPU seconds.
+  and the JAX CPU seconds;
+- ``evm_call_tree``: the call tree of
+  ``test_call_tree_prove_verify_roundtrip`` (tests/test_evm_call.py: a
+  caller that CALLs a callee and the identity precompile, 17 tables)
+  through ``evm_air.prove_call_tree``; the golden keeps its inputs, the
+  sha256 of ``json.dumps(payload, sort_keys=True)``, each table's width,
+  size and trace root;
+- ``block_10tx_evm``: the same 10-tx block under the default config
+  (prover args ``BLOCK_EVM_ARGS``: the EVM frame statement and the
+  prestate binding on), kept as ``block_10tx`` is, with the EVM
+  statement's covered and total frame candidates.
 
 The state-trie statement's message order follows the reference
 preflight's set of accessed accounts (``ProviderDb.accessed_accounts``),
@@ -69,9 +80,28 @@ KECCAK_SMALL = (3, 4)  # 3 messages, 4 blocks: n = 256
 CHAIN_SEED = 11
 BLOCK_TXS = 10
 BLOCK_ARGS = {"evm_statement": False, "proof_cache": False}
+BLOCK_EVM_ARGS = {"proof_cache": False}  # the default config: EVM frames and prestate on
 HASH_SEED = "0"  # PYTHONHASHSEED of every run compared against block_10tx
 # the payload slots that hold a STARK statement, in the order run() proves them
-STATEMENTS = ("stark", "mpt", "tx_mpt", "receipts_mpt", "chain")
+STATEMENTS = ("stark", "mpt", "tx_mpt", "receipts_mpt", "chain", "evm", "prestate")
+# the call tree of tests/test_evm_call.py: a caller that CALLs a callee and
+# the identity precompile (two frames and their composition tables)
+TREE_CALLEE_ADDR = 0xBB
+TREE_CALLEE = bytes([
+    0x60, 0x00, 0x35, 0x60, 0x01, 0x01,
+    0x60, 0x00, 0x52, 0x60, 0x20, 0x60, 0x00, 0xF3,
+])
+TREE_CALLER = bytes([
+    0x60, 41, 0x60, 0x00, 0x52,
+    0x60, 0x20, 0x60, 0x20, 0x60, 0x20, 0x60, 0x00, 0x60, 0x00,
+    0x60, TREE_CALLEE_ADDR, 0x61, 0xFF, 0xFF, 0xF1,
+    0x60, 0x20, 0x51, 0x01,
+    0x60, 0x20, 0x60, 0x40, 0x60, 0x20, 0x60, 0x00, 0x60, 0x00,
+    0x60, 0x04, 0x61, 0xFF, 0xFF, 0xF1,
+    0x00,
+])
+TREE_ENV = {"address": 0xAA, "caller": 0x99, "origin": 0x99}
+TREE_GAS = 100_000
 
 
 def keccak_messages(seed: int, n_msgs: int | None, n_blocks: int) -> list[bytes]:
@@ -305,7 +335,14 @@ def statement_tables(payload: dict) -> dict:
     for slot in STATEMENTS:
         if slot in payload:
             st = payload[slot]
-            out[slot] = 1 if slot == "stark" else len(st.get("starks", st.get("stark_chunks", [])))
+            if slot == "stark":
+                out[slot] = 1
+            elif slot == "evm":
+                out[slot] = sum(len(f["starks"]) for f in st["frames"])
+            elif slot == "prestate":
+                out[slot] = len(st["keccak"]["stark_chunks"])
+            else:
+                out[slot] = len(st.get("starks", st.get("stark_chunks", [])))
     return out
 
 
@@ -333,7 +370,36 @@ def golden_containment_chain() -> dict:
     }
 
 
-def golden_block_10tx() -> dict:
+def golden_evm_call_tree() -> dict:
+    """The call tree of ``test_call_tree_prove_verify_roundtrip``
+    (tests/test_evm_call.py) proven by ``evm_air.prove_call_tree``."""
+    from raiko_tpu.stark.airs import evm_air as ea
+
+    root = ea.execute_frame(TREE_CALLER, ea.FrameEnv(**TREE_ENV), TREE_GAS,
+                            world={TREE_CALLEE_ADDR: {"code": TREE_CALLEE}}, warm_addresses=set())
+    t0 = time.perf_counter()
+    payload = ea.prove_call_tree(root)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not ea.verify_frame_payload(payload):
+        raise SystemExit("evm_call_tree: the JAX package's verifier rejects its own payload")
+    verify_seconds = time.perf_counter() - t0
+    return {
+        "case": "evm_call_tree",
+        "inputs": {"caller": TREE_CALLER.hex(), "callee": TREE_CALLEE.hex(),
+                   "callee_address": TREE_CALLEE_ADDR, "env": TREE_ENV, "gas": TREE_GAS},
+        "sha256": _sha(payload),
+        "proof_bytes": len(json.dumps(payload, sort_keys=True)),
+        "frames": len(payload["frames"]),
+        "tables": [[p["width"], p["log_n"]] for p in payload["starks"]],
+        "roots": [p["trace_root"] for p in payload["starks"]],
+        "eager_quotient": True,
+        "jax_cpu_prove_seconds": seconds,
+        "jax_cpu_verify_seconds": verify_seconds,
+    }
+
+
+def golden_block_10tx(case: str = "block_10tx", args: dict = BLOCK_ARGS) -> dict:
     from raiko_tpu.chain import SupportedChainSpecs
     from raiko_tpu.core.interfaces import ProofRequest, ProofType
     from raiko_tpu.core.orchestrator import Raiko
@@ -341,7 +407,7 @@ def golden_block_10tx() -> dict:
 
     build_jax_chain(BLOCK_TXS)
     req = ProofRequest(block_number=1, network="taiko_a7", proof_type=ProofType.TPU_STARK,
-                       prover_args=dict(BLOCK_ARGS))
+                       prover_args=dict(args))
     raiko = Raiko(SupportedChainSpecs(), req)
     gi = raiko.generate_input()
     out = raiko.get_output(gi)
@@ -352,11 +418,11 @@ def golden_block_10tx() -> dict:
     payload = json.loads(proof.proof)
     t0 = time.perf_counter()
     if not tpu_stark.verify_payload(payload):
-        raise SystemExit("block_10tx: the JAX package's verifier rejects its own payload")
+        raise SystemExit(f"{case}: the JAX package's verifier rejects its own payload")
     verify_seconds = time.perf_counter() - t0
     return {
-        "case": "block_10tx",
-        "inputs": {"txs": BLOCK_TXS, "network": "taiko_a7", "block_number": 1, "prover_args": BLOCK_ARGS,
+        "case": case,
+        "inputs": {"txs": BLOCK_TXS, "network": "taiko_a7", "block_number": 1, "prover_args": args,
                    "python_hash_seed": HASH_SEED},
         "block_hash": gi.block_header.hash().hex(),
         "instance_hash": out.hash.hex(),
@@ -365,13 +431,20 @@ def golden_block_10tx() -> dict:
         "sha256": _sha(payload),
         "statements": {slot: _sha(payload[slot]) for slot in sorted(payload)},
         "tables": statement_tables(payload),
+        **({"evm_covered": payload["evm"]["covered"], "evm_total": payload["evm"]["total"]}
+           if "evm" in payload else {}),
         "eager_quotient": True,
         "jax_cpu_prove_seconds": seconds,
         "jax_cpu_verify_seconds": verify_seconds,
     }
 
 
-PAYLOAD_CASES = {"containment_chain": golden_containment_chain, "block_10tx": golden_block_10tx}
+PAYLOAD_CASES = {
+    "containment_chain": golden_containment_chain,
+    "evm_call_tree": golden_evm_call_tree,
+    "block_10tx": golden_block_10tx,
+    "block_10tx_evm": lambda: golden_block_10tx("block_10tx_evm", BLOCK_EVM_ARGS),
+}
 
 
 def main(argv=None) -> int:
