@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # the smoke run below
     python3 chip_smoke.py --profile DIR   # where a commitment's and a request's time goes
+    python3 chip_smoke.py --verify KIND PATH   # one payload file's verification (the run starts these)
 
 Needs one CUDA card and the repository checkout around this file.  JAX and
 the JAX package (``raiko_tpu``) are refused before anything is imported, so
@@ -114,7 +115,9 @@ prints one JSON line; any failure raises and exits non-zero.
    ``BLOCK_SERVED_FRAMES`` call trees, printed) and as a ``native`` one
    through the port's server, counts reset just before each: the
    ``tpu_stark`` request must end in ``success`` with its ``evm`` and
-   ``prestate`` statements, its payload pass ``verify_payload``, its
+   ``prestate`` statements, its payload pass ``verify_payload`` (in a
+   process of its own, ``chip_smoke.py --verify``, beside phase 11: a
+   ``block_verify`` line at the end), its
    ``kzg_proof`` equal the native request's and its ``input`` the
    instance hash of the port's host path (``Raiko(..., None).get_output``),
    and B1, B2, B4, intt, ntt_coset, poseidon2_hash_rows and
@@ -126,7 +129,50 @@ prints one JSON line; any failure raises and exits non-zero.
    ``block_prove`` line per block (seconds, verification seconds, peak
    device memory, payload bytes); no JAX or ``raiko_tpu`` module was
    loaded.  Each statement's device time is ``--profile``'s: the
-   profiler's bookkeeping would lengthen this run.
+   profiler's bookkeeping would lengthen this run;
+11. seal: the recursion seal and the ``tpu_shard`` backend.  The seal of
+   the Poseidon2 transcript payload of ``bytes(range(32))`` (one inner
+   group; the outer circuit 65,536 gate rows x 12 columns and 4,096
+   Poseidon2 call rows x 705) through ``seal.prove_block_seal(...,
+   "cuda")``, whose sha256 must equal the JAX golden's
+   (``tests/golden/stark_seal_transcript.json``), which
+   ``verify_block_seal(..., "cuda")`` must accept whole and stripped and
+   reject with another instance hash or shape vector, and whose artifact
+   must pass the port's on-chain verifier (``ChainSim`` with
+   ``install_proof_verifier``, ``onchain.verify_proof_onchain``) and fail
+   under a zero journal; then ``tpu_shard.prove_sharded_recursive`` of the
+   same instance hash at production parameters, equal to its golden
+   (``stark_shard_recursive.json``), verified, a changed boundary
+   rejected.  Both run under torch.profiler for the outer quotient's
+   launches, the counts set to 0 just before each, and must launch B5's
+   intt and ntt_coset, poseidon2_hash_rows and poseidon2_merkle.  Then,
+   through the port's server: the golden's 10-tx block as a ``tpu_stark``
+   request with ``"seal": true, "seal_max_tables": 1`` (its trees cut to
+   ``SEALED_FRAMES``, printed), whose payload must carry a seal of one
+   group with tables left unsealed and pass ``verify_payload``; a 100-tx
+   block as a ``tpu_shard`` request with ``"recursion": true`` (its trees
+   cut to ``SHARD_SERVED_FRAMES``, printed; ``shard_workers``
+   ``SHARD_WORKERS``, printed), whose payload must pass
+   ``verify_block_sharded`` (in a process of its own beside the rest of
+   the phase), bind the served instance hash, and whose
+   ``kzg_proof`` must equal the ``native`` request's, the counts set to 0
+   just before it and B1, B2, B4, intt, ntt_coset, poseidon2_hash_rows and
+   poseidon2_merkle all launched; a ``tee`` request, signed by the
+   instance it bootstrapped, which then registers through
+   ``install_sgx_verifier``; and a ``remote`` request forwarded to a
+   second port server, equal to the ``native`` one.  One ``seal`` line
+   and one ``tpu_shard`` line: the circuit's, the proof's and the
+   verification's seconds, the prover's stages, the outer tables, the
+   launches by kernel, the outer quotient's launches and device ms, peak
+   device memory, the artifact's bytes, ``shard_workers``; one
+   ``sealed_block`` line.
+
+The kernels line gives each kernel's launches per transcript seal and per
+served ``tpu_shard`` request beside the earlier paths'.  The two served
+100-tx payloads are verified by ``chip_smoke.py --verify KIND PATH``
+processes started as each payload arrives (verification is mostly host
+work, as long as the proof), whose results the run waits for; the run
+stops them if it fails first.
 
 The run re-executes itself under PYTHONHASHSEED=0 first: the state-trie
 statement's message order follows Python's string hashing, in the JAX
@@ -218,12 +264,34 @@ BLOCK_ARGS = {"proof_cache": False}
 BLOCK_SERVED_TXS = 100
 # a cut of depth: the served block proves its first BLOCK_SERVED_FRAMES
 # covered call trees (the default max_evm_frames is 64; the block has 90
-# candidates), so that the run stays inside its time: at 64 trees the
-# request took 369 s and its verification 391 s (NVIDIA H100 80GB HBM3,
-# 700 W), about 4.7 s and 5.2 s a tree
-BLOCK_SERVED_FRAMES = 20
+# candidates), so that the run, phase seal included, stays inside its
+# time: at 64 trees the request took 369 s and its verification 391 s
+# (NVIDIA H100 80GB HBM3, 700 W), about 4.7 s and 5.2 s a tree
+BLOCK_SERVED_FRAMES = 2
 BLOCK_SERVED_ARGS = {**BLOCK_ARGS, "max_evm_frames": BLOCK_SERVED_FRAMES}
 BLOCK = SERVED + STARK
+# phase seal: the recursion seal of the transcript payload and the
+# recursively aggregated transcript shards, each against its JAX golden,
+# then a served tpu_shard block (recursion on), a sealed tpu_stark block,
+# a tee and a remote request
+SEAL_IH = bytes(range(32))  # the instance hash of both goldens' payloads
+SEAL_GOLDEN = "seal_transcript"
+SHARD_GOLDEN = "shard_recursive"
+# a cut of depth: the served tpu_shard block proves its first
+# SHARD_SERVED_FRAMES covered call trees as shards; on one worker
+# (SHARD_WORKERS), which proved this block in 0.72x the time of the
+# default pool of 4 and the same payload (tools/time_shard_workers.py on
+# an NVIDIA H100 80GB HBM3 at 700 W: 131.5-132.3 s against 174.6-192.8 s)
+SHARD_SERVED_FRAMES = 1
+SHARD_WORKERS = 1
+SHARD_SERVED_ARGS = {"proof_cache": False, "recursion": True, "max_evm_frames": SHARD_SERVED_FRAMES,
+                     "shard_workers": SHARD_WORKERS}
+# the sealed tpu_stark block: the golden's 10-tx block, its trees cut to
+# SEALED_FRAMES, only the transcript group sealed (seal_max_tables 1: a
+# wide keccak group's seal takes far longer than the run has)
+SEALED_TXS = 10
+SEALED_FRAMES = 1
+SEALED_ARGS = {"proof_cache": False, "seal": True, "seal_max_tables": 1, "max_evm_frames": SEALED_FRAMES}
 # The state-trie statement's message order follows the reference
 # preflight's set of accessed accounts, whose order follows Python's string
 # hashing: the run re-executes itself under the golden's PYTHONHASHSEED
@@ -1356,10 +1424,11 @@ def statement_device_ms(prof) -> dict:
     return out
 
 
-def statement_quotient(prof) -> dict:
-    """Per ``tpu_stark.*`` range of a profile: the wall ms, device ms and
-    CUDA kernel launches (the runtime's launch calls, counted on the host)
-    inside its ``stark.quotient`` ranges (the profiling thread only)."""
+def statement_quotient(prof, prefix: str = "tpu_stark.") -> dict:
+    """Per range of a profile whose name starts with `prefix`: the wall ms,
+    device ms and CUDA kernel launches (the runtime's launch calls, counted
+    on the host) inside its ``stark.quotient`` ranges (the profiling thread
+    only)."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -1368,8 +1437,8 @@ def statement_quotient(prof) -> dict:
     launches = sorted(e.time_range.start for e in cpu if "LaunchKernel" in e.name)
     quotients = [e for e in cpu if e.name == "stark.quotient"]
     out: dict = {}
-    for st in (e for e in cpu if e.name.startswith("tpu_stark.")):
-        row = out.setdefault(st.name.removeprefix("tpu_stark."), {"wall_ms": 0.0, "device_ms": 0.0, "launches": 0})
+    for st in (e for e in cpu if e.name.startswith(prefix)):
+        row = out.setdefault(st.name.removeprefix(prefix), {"wall_ms": 0.0, "device_ms": 0.0, "launches": 0})
         for q in quotients:
             if st.time_range.start <= q.time_range.start and q.time_range.end <= st.time_range.end:
                 row["wall_ms"] += q.cpu_time_total / 1e3
@@ -1428,7 +1497,8 @@ def phase_block_prove() -> dict:
     golden's 10-tx block through ``Raiko(..., "cuda").prove`` against the
     JAX payload, then a 100-tx block served as a v2 ``tpu_stark`` request;
     the transcript and the verifier must run the C host Poseidon2.
-    Returns the served request's launches."""
+    Returns the served request's launches and its payload's verification,
+    started in the background (``BackgroundVerify``)."""
     import copy
     import hashlib
 
@@ -1520,11 +1590,10 @@ def phase_block_prove() -> dict:
                                   torch.cuda.max_memory_allocated() / 1e9, meter)
     stark_proof, seconds, launches, peak_gb, meter = served["tpu_stark"]
     payload = json.loads(stark_proof["proof"])
-    verified, verify_ms = once_ms(lambda: tpu_stark.verify_payload(payload, cuda))
+    pending = BackgroundVerify("tpu_stark", payload)
     _, _, host_out = block_request(None, BLOCK_SERVED_ARGS)
     evm = payload.get("evm", {})
     checks = {
-        "verified": verified,
         "evm": 0 < len(evm.get("frames", [])) == evm.get("covered") <= BLOCK_SERVED_FRAMES,
         "prestate": "prestate" in payload,
         "kzg_proof_equal_native": stark_proof["kzg_proof"] == served["native"][0]["kzg_proof"],
@@ -1532,8 +1601,7 @@ def phase_block_prove() -> dict:
     }
     emit_statements("100tx", payload, meter, None)
     emit("block_prove", block="100tx", served=True, prover_args=BLOCK_SERVED_ARGS,
-         max_evm_frames=BLOCK_SERVED_FRAMES, seconds_per_request=seconds, verify_s=verify_ms / 1e3,
-         tables=sum(statement_tables(payload).values()), evm_trees=len(evm.get("frames", [])),
+         max_evm_frames=BLOCK_SERVED_FRAMES, seconds_per_request=seconds, tables=sum(statement_tables(payload).values()), evm_trees=len(evm.get("frames", [])),
          evm_covered=evm.get("covered"), evm_total=evm.get("total"), launches=launches, peak_device_gb=peak_gb,
          payload_bytes=len(stark_proof["proof"]), native_seconds=served["native"][1],
          host_poseidon2_calls=sum(p2h.CALLS.snapshot().values()), phase_s=time.perf_counter() - t_phase,
@@ -1543,7 +1611,358 @@ def phase_block_prove() -> dict:
     missing = [k for k in BLOCK if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the served tpu_stark block: {missing}")
+    return launches, pending
+
+
+class SpanMeter:
+    """Seconds of the ``recursion.circuit`` spans and of the prover's
+    stages (``stark.*``) while it is entered, from any thread."""
+
+    def __enter__(self):
+        from raiko_tpu_torch.utils.measurement import Measurement
+
+        self.seconds: dict = {}
+        self._token = Measurement.subscribe(self._record)
+        return self
+
+    def __exit__(self, *exc):
+        from raiko_tpu_torch.utils.measurement import Measurement
+
+        Measurement.unsubscribe(self._token)
+
+    def _record(self, title: str, seconds: float) -> None:
+        if title == "recursion.circuit" or title.startswith("stark."):
+            self.seconds[title] = self.seconds.get(title, 0.0) + seconds
+
+    def take(self) -> dict:
+        out, self.seconds = self.seconds, {}
+        return out
+
+
+def outer_run(fn):
+    """(result, seconds, launches, peak device GB, spans, profile) of one
+    synchronised call of `fn` under torch.profiler, the counts set to 0
+    just before it; the profile's fields are the whole call's device ms and
+    its ``stark.quotient`` ranges' wall ms, device ms and launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from raiko_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.LAUNCHES.reset()
+    with SpanMeter() as spans, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("outer_run"):
+            out, ms = once_ms(fn)
+    launches = kernels.LAUNCHES.snapshot()
+    quotient = statement_quotient(prof, "outer_run")[""]
+    row = {"device_ms": sum(e.self_device_time_total for e in prof.events()) / 1e3,
+           **{f"quotient_{k}": v for k, v in quotient.items()}}
+    return out, ms / 1e3, launches, torch.cuda.max_memory_allocated() / 1e9, spans.take(), row
+
+
+def serve_request(base: str, body: dict, limit_s: float) -> tuple[dict, float, dict]:
+    """(proof, seconds, launches) of one v2 request polled to its end, the
+    counts set to 0 just before it; raises unless it ends in success."""
+    import torch
+
+    from raiko_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    r = _post(f"{base}/v2/proof", body)
+    while r["status"] == "ok" and r["data"].get("status") in ("registered", "work_in_progress"):
+        if time.perf_counter() - t0 > limit_s:
+            raise TimeoutError(f"{body['proof_type']}: no proof after {limit_s} s")
+        time.sleep(0.2)
+        r = _post(f"{base}/v2/proof", body)
+    seconds = time.perf_counter() - t0
+    if r["status"] != "ok" or r["data"].get("status") != "success":
+        raise AssertionError(f"{body['proof_type']} request ended as {r}")
+    return r["data"]["proof"], seconds, kernels.LAUNCHES.snapshot()
+
+
+def payload_sha(obj) -> str:
+    """sha256 of ``json.dumps(obj, sort_keys=True)``, as the goldens keep it."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def load_golden(case: str) -> dict:
+    with open(os.path.join(ROOT, "tests", "golden", f"stark_{case}.json")) as f:
+        return json.load(f)
+
+
+def stage_ms(spans: dict) -> dict:
+    """The prover's stage spans of a ``SpanMeter`` in ms, by stage."""
+    return {k.removeprefix("stark.") + "_ms": v * 1e3 for k, v in spans.items() if k.startswith("stark.")}
+
+
+def seal_transcript() -> dict:
+    """The transcript payload's seal against the JAX golden, its
+    verification and its artifact through the on-chain verifier; emits the
+    ``seal`` line and returns the seal's launches."""
+    import torch
+
+    from raiko_tpu_torch.core.provider import SimBlockDataProvider
+    from raiko_tpu_torch.provers import onchain, seal, tpu_stark
+    from raiko_tpu_torch.testing.chainsim import ChainSim, install_proof_verifier
+
+    cuda = torch.device("cuda")
+    g = load_golden(SEAL_GOLDEN)
+    payload = tpu_stark.prove_transcript(SEAL_IH, cuda)
+    if payload_sha(payload) != g["payload_sha256"]:
+        raise AssertionError("the transcript payload differs from the seal golden's")
+    s, prove_s, launches, peak_gb, spans, quotient = outer_run(lambda: seal.prove_block_seal(payload, cuda))
+    with SpanMeter() as vspans:
+        verified, verify_ms = once_ms(lambda: seal.verify_block_seal(payload, s, cuda))
+    artifact = seal.seal_artifact(payload, s)
+    chain = ChainSim("ethereum", device=None)
+    verifier_addr = b"\x53" * 20
+    install_proof_verifier(chain, verifier_addr, cuda)
+    provider = SimBlockDataProvider(chain)
+    checks = {
+        "equal_golden": payload_sha(s) == g["sha256"],
+        "verified": verified,
+        "stripped_verified": seal.verify_block_seal(seal.strip_payload(payload), s, cuda),
+        "other_instance_rejected": not seal.verify_block_seal(dict(payload, instance_hash=bytes(32).hex()), s, cuda),
+        "other_shapes_rejected": not seal.verify_block_seal(
+            payload, dict(s, shapes=[[x + 1 for x in grp] for grp in s["shapes"]]), cuda),
+        "onchain_verified": onchain.verify_proof_onchain(provider, verifier_addr, SEAL_IH, artifact),
+        "onchain_zero_journal_rejected": not onchain.verify_proof_onchain(provider, verifier_addr, bytes(32),
+                                                                          artifact),
+    }
+    emit("seal", case=SEAL_GOLDEN, circuit_s=spans.get("recursion.circuit", 0.0), prove_s=prove_s,
+         verify_s=verify_ms / 1e3, verify_circuit_s=vspans.take().get("recursion.circuit", 0.0),
+         stages_ms=stage_ms(spans), outer_tables=[[d["log_n"], d["width"]] for d in s["outer"]],
+         shapes=s["shapes"], launches=launches, **quotient, peak_device_gb=peak_gb,
+         seal_bytes=len(json.dumps(s)), artifact_bytes=len(artifact), profiled=True, sha256=payload_sha(s),
+         golden_sha256=g["sha256"], jax_cpu_prove_s=g["jax_cpu_prove_seconds"], **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"the transcript seal: {checks}")
+    missing = [k for k in STARK if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"the transcript seal: kernels not launched: {missing}")
     return launches
+
+
+def recursive_shards() -> dict:
+    """The recursively aggregated transcript shards against the JAX golden;
+    returns the ``tpu_shard`` line's fields for them."""
+    import torch
+
+    from raiko_tpu_torch.provers import tpu_shard
+
+    cuda = torch.device("cuda")
+    g = load_golden(SHARD_GOLDEN)
+    shards, prove_s, launches, peak_gb, spans, quotient = outer_run(
+        lambda: tpu_shard.prove_sharded_recursive(SEAL_IH, cuda))
+    with SpanMeter() as vspans:
+        verified, verify_ms = once_ms(lambda: tpu_shard.verify_sharded_recursive(shards, cuda))
+    bad = dict(shards, boundaries=[list(b) for b in shards["boundaries"]])
+    bad["boundaries"][1][0] = (bad["boundaries"][1][0] + 1) % 2013265921
+    checks = {"equal_golden": payload_sha(shards) == g["sha256"], "verified": verified,
+              "other_boundary_rejected": not tpu_shard.verify_sharded_recursive(bad, cuda)}
+    if not all(checks.values()):
+        raise AssertionError(f"the recursive shards: {checks}")
+    missing = [k for k in STARK if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"the recursive shards: kernels not launched: {missing}")
+    return {"circuit_s": spans.get("recursion.circuit", 0.0), "prove_s": prove_s, "verify_s": verify_ms / 1e3,
+            "verify_circuit_s": vspans.take().get("recursion.circuit", 0.0), "stages_ms": stage_ms(spans),
+            "outer_tables": [[d["log_n"], d["width"]] for d in shards["outer"]], "launches": launches, **quotient,
+            "peak_device_gb": peak_gb, "payload_bytes": len(json.dumps(shards)), "profiled": True,
+            "sha256": payload_sha(shards), "golden_sha256": g["sha256"],
+            "jax_cpu_prove_s": g["jax_cpu_prove_seconds"], **checks}
+
+
+def serve_sealed_block() -> None:
+    """The golden's 10-tx block as a sealed ``tpu_stark`` request through
+    the port's server; emits the ``sealed_block`` line."""
+    import torch
+
+    from raiko_tpu_torch.host.cli import BackgroundServer
+    from raiko_tpu_torch.provers import tpu_stark
+    from raiko_tpu_torch.testing.workload import build_chain
+
+    port = _free_port()
+    argv = ["--device", "cuda", "--address", "127.0.0.1", "--log-level", "warning", "--port", str(port)]
+    with BackgroundServer(argv) as srv:
+        build_chain(1, SEALED_TXS, srv.device)
+        body = {"block_number": 1, "network": "taiko_a7", "proof_type": "tpu_stark", **SEALED_ARGS}
+        sealed, seconds, launches = serve_request(f"http://127.0.0.1:{port}", body, 900)
+    payload = json.loads(sealed["proof"])
+    verified, verify_ms = once_ms(lambda: tpu_stark.verify_payload(payload, torch.device("cuda")))
+    slot = payload.get("seal", {})
+    checks = {"seal_slot": "seal" in payload, "n_groups": slot.get("n_groups") == 1,
+              "unsealed": slot.get("unsealed", 0) > 0, "verified": verified,
+              "evm": 0 < len(payload.get("evm", {}).get("frames", [])) <= SEALED_FRAMES}
+    emit("sealed_block", block=f"{SEALED_TXS}tx", prover_args=SEALED_ARGS, max_evm_frames=SEALED_FRAMES,
+         seconds_per_request=seconds, verify_s=verify_ms / 1e3, launches=launches,
+         sealed_groups=slot.get("n_groups"), unsealed_tables=slot.get("unsealed"),
+         seal_bytes=len(json.dumps(slot)), payload_bytes=len(sealed["proof"]), **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"the sealed {SEALED_TXS}-tx tpu_stark block: {checks}")
+
+
+def serve_shard_block() -> dict:
+    """Through the port's server: a 100-tx block as ``tpu_shard`` (recursion
+    on), ``native``, ``tee`` and ``remote`` (to a second port server).
+    Returns the ``tpu_shard`` line's fields for them, its launches under
+    ``served_launches`` and the payload's verification, started in the
+    background, under ``pending``."""
+    import tempfile
+
+    import torch
+
+    from raiko_tpu_torch.core.interfaces import ProofType
+    from raiko_tpu_torch.core.provider import SimBlockDataProvider
+    from raiko_tpu_torch.host.cli import BackgroundServer
+    from raiko_tpu_torch.provers import base as provers_base
+    from raiko_tpu_torch.provers.tee import TeeProver
+    from raiko_tpu_torch.testing.chainsim import ChainSim, install_sgx_verifier
+    from raiko_tpu_torch.testing.workload import build_chain
+    from raiko_tpu_torch.utils import secp256k1
+
+    provers_base.get_prover(ProofType.TEE)  # the registry's own tee prover is loaded first
+    port, worker_port = _free_port(), _free_port()
+    argv = ["--device", "cuda", "--address", "127.0.0.1", "--log-level", "warning", "--port"]
+    base = f"http://127.0.0.1:{port}"
+    with tempfile.TemporaryDirectory() as key_dir, BackgroundServer(argv + [str(port)]) as srv, \
+            BackgroundServer(argv + [str(worker_port)]):
+        tee = TeeProver(key_dir=key_dir)
+        tee_info = tee.bootstrap()
+        provers_base.register(tee)
+        build_chain(1, BLOCK_SERVED_TXS, srv.device)
+        body = {"block_number": 1, "network": "taiko_a7"}
+        torch.cuda.reset_peak_memory_stats()
+        with SpanMeter() as spans:
+            shard, served_s, launches = serve_request(base, {**body, "proof_type": "tpu_shard", **SHARD_SERVED_ARGS},
+                                                      900)
+        served_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        native, native_s, _ = serve_request(base, {**body, "proof_type": "native"}, 300)
+        tee_proof, tee_s, _ = serve_request(base, {**body, "proof_type": "tee"}, 300)
+        remote, remote_s, _ = serve_request(
+            base, {**body, "proof_type": "remote", "endpoint": f"http://127.0.0.1:{worker_port}",
+                   "remote_proof_type": "native", "poll_interval": 0.2}, 300)
+        # the tee instance registers with the chain's SGX verifier (its key
+        # lives in key_dir)
+        sgx_chain = ChainSim("ethereum", device=None)
+        sgx_addr = b"\x51" * 20
+        registry = install_sgx_verifier(sgx_chain, sgx_addr)
+        instance_id = tee.register_instance(SimBlockDataProvider(sgx_chain), sgx_addr)
+    served_spans = spans.take()
+    payload = json.loads(shard["proof"])
+    pending = BackgroundVerify("tpu_shard", payload)
+    raw = bytes.fromhex(tee_proof["proof"][2:])
+    ih = bytes.fromhex(tee_proof["input"][2:])
+    sig_r, sig_s, sig_v = int.from_bytes(raw[24:56], "big"), int.from_bytes(raw[56:88], "big"), raw[88]
+    evm = payload.get("evm", {})
+    checks = {
+        "recursive_transcript": payload["transcript"]["kind"] == "poseidon2-transcript-sharded-recursive-v1",
+        "evm": 0 < len(evm.get("frames", [])) == evm.get("covered") <= SHARD_SERVED_FRAMES,
+        "kzg_proof_equal_native": shard["kzg_proof"] == native["kzg_proof"],
+        "input_bound": shard["input"] == "0x" + payload["instance_hash"],
+        "tee_signed_by_instance": len(raw) == 89 and "0x" + raw[4:24].hex() == tee_info["new_instance"]
+        and secp256k1.ecrecover(ih, sig_v, sig_r, sig_s) == raw[4:24],
+        "tee_registered": instance_id == 1 and "0x" + registry["instances"][1].hex() == tee_info["new_instance"],
+        "remote_equal_native": remote["input"] == native["input"] and remote["kzg_proof"] == native["kzg_proof"],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"the served tpu_shard, tee and remote requests: {checks}")
+    missing = [k for k in BLOCK if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the served tpu_shard block: {missing}")
+    return {"served_block": f"{BLOCK_SERVED_TXS}tx", "served_prover_args": SHARD_SERVED_ARGS,
+            "max_evm_frames": SHARD_SERVED_FRAMES, "shard_workers": SHARD_WORKERS, "served_seconds": served_s,
+            "served_circuit_s": served_spans.get("recursion.circuit", 0.0),
+            "served_stages_ms": stage_ms(served_spans), "served_launches": launches,
+            "served_peak_device_gb": served_peak_gb, "served_payload_bytes": len(shard["proof"]),
+            "shards": payload.get("shards"), "evm_trees": len(evm.get("frames", [])), "evm_total": evm.get("total"),
+            "native_seconds": native_s, "tee_seconds": tee_s, "remote_seconds": remote_s, **checks,
+            "pending": pending}
+
+
+def phase_seal() -> dict:
+    """The recursion seal and the tpu_shard backend on the card: the served
+    ``tpu_shard``, ``native``, ``tee`` and ``remote`` requests, the seal of
+    the transcript payload and the recursive shards of the same instance
+    hash against their JAX goldens, the sealed ``tpu_stark`` block, then
+    the served ``tpu_shard`` payload's verification, which ran in the
+    background meanwhile.  Returns the launches of the seal and of the
+    served ``tpu_shard`` request."""
+    t0 = time.perf_counter()
+    served = serve_shard_block()
+    pending = served.pop("pending")
+    seal_launches = seal_transcript()
+    shard_row = recursive_shards()
+    serve_sealed_block()
+    verified, verify_s = pending.result()
+    emit("tpu_shard", case=SHARD_GOLDEN, **shard_row, **served, served_verify_s=verify_s,
+         served_verify_background=True, served_verified=verified, phase_s=time.perf_counter() - t0)
+    if not verified:
+        raise AssertionError("the served tpu_shard payload does not verify")
+    return {"seal": seal_launches, "tpu_shard": served["served_launches"]}
+
+
+# the payload verifiers a BackgroundVerify process runs, by kind
+VERIFIERS = {"tpu_stark": ("raiko_tpu_torch.provers.tpu_stark", "verify_payload"),
+             "tpu_shard": ("raiko_tpu_torch.provers.tpu_shard", "verify_block_sharded")}
+_BACKGROUND: list = []  # BackgroundVerify processes not yet collected, stopped when main() ends
+
+
+class BackgroundVerify:
+    """A served payload's verification on the card in a process of its own
+    (``chip_smoke.py --verify KIND PATH``), started as soon as the payload
+    is in: verification is mostly host work, as long as the proof, and in a
+    process of its own it overlaps the run's next phases."""
+
+    def __init__(self, kind: str, payload: dict):
+        import tempfile
+
+        fd, self.path = tempfile.mkstemp(prefix=f"chip_smoke_{kind}_", suffix=".json")
+        with os.fdopen(fd, "w") as f:
+            json.dump(payload, f)
+        self.kind = kind
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--verify", kind, self.path],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        _BACKGROUND.append(self)
+
+    def result(self) -> tuple[bool, float]:
+        """(verified, the verification's seconds in its process); raises if
+        the process failed."""
+        try:
+            out, err = self.proc.communicate(timeout=900)
+        finally:
+            self.close()
+            _BACKGROUND.remove(self)
+        if self.proc.returncode != 0:
+            raise AssertionError(f"the {self.kind} verification process failed "
+                                 f"(rc {self.proc.returncode}): {err[-3000:]}")
+        row = json.loads(out.strip().splitlines()[-1])
+        return row["verified"], row["seconds"]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if os.path.exists(self.path):
+            os.remove(self.path)
+
+
+def verify_payload_file(kind: str, path: str, device) -> dict:
+    """The ``--verify`` process: one payload file through its verifier."""
+    import importlib
+
+    module, name = VERIFIERS[kind]
+    verify = getattr(importlib.import_module(module), name)
+    with open(path) as f:
+        payload = json.load(f)
+    verified, ms = once_ms(lambda: verify(payload, device))
+    return {"kind": kind, "verified": verified, "seconds": ms / 1e3}
 
 
 def refused_modules() -> list[str]:
@@ -1693,10 +2112,16 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", metavar="DIR",
                         help="profile a commitment and three served-path requests instead, "
                              "writing torch.profiler's tables into DIR")
+    parser.add_argument("--verify", nargs=2, metavar=("KIND", "PATH"),
+                        help="verify one payload file on the card and print the result as JSON "
+                             "(the run's background verifications)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
     sys.path.insert(0, ROOT)
+    if args.verify:
+        print(json.dumps(verify_payload_file(*args.verify, torch.device("cuda"))), flush=True)
+        return 0
     from raiko_tpu_torch import convert
 
     t_start = time.perf_counter()
@@ -1727,7 +2152,12 @@ def main(argv=None) -> int:
     proof_launches = phase_stark_prove()
     launches.update(ops_launches)
     check_requests(served)
-    block_launches = phase_block_prove()
+    block_launches, pending = phase_block_prove()
+    seal_launches = phase_seal()
+    verified, verify_s = pending.result()
+    emit("block_verify", block="100tx", verify_s=verify_s, background=True, verified=verified)
+    if not verified:
+        raise AssertionError("the served 100-tx tpu_stark payload does not verify")
     loaded = refused_modules()
     emit("refused", loaded=loaded, seconds=time.perf_counter() - t_start)
     if loaded:
@@ -1737,7 +2167,9 @@ def main(argv=None) -> int:
          "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "timing": r["timing"],
          "events_ms": r["events_ms"], "launches_per_keccak_proof": proof_launches.get(k, 0),
-         "launches_per_block_proof": block_launches.get(k, 0)}
+         "launches_per_block_proof": block_launches.get(k, 0),
+         "launches_per_transcript_seal": seal_launches["seal"].get(k, 0),
+         "launches_per_shard_request": seal_launches["tpu_shard"].get(k, 0)}
         for k, r in kres.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1746,4 +2178,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for _proc in _BACKGROUND:
+            _proc.close()

@@ -1,12 +1,12 @@
 """Proof backends (reference provers/ crates).
 
 Registry-dispatched (reference run_prover, core/src/interfaces.rs:168-222).
-The port registers ``native`` (re-execute + check, no proof; reference
-NativeProver) and ``tpu_stark`` (the STARK backend with its keccak-DAG
-statements; it refuses a config that asks for the EVM frame statement or
-the seal, which are not ported yet).  A request for another proof type
-(``tpu_shard``, ``tee``, ``remote``) is refused as an unregistered type
-(``GuestError``).
+The port registers every backend the reference serves: ``native``
+(re-execute + check, no proof; reference NativeProver), ``tpu_stark``
+(the STARK backend, with the recursion seal on request), ``tpu_shard``
+(the shard-parallel backend, with recursive aggregation on request),
+``tee`` (a signed instance hash with a mock quote) and ``remote``
+(forwarded to another server over v2).
 """
 
 from ..core.interfaces import ProofType

@@ -53,4 +53,4 @@ def get_prover(proof_type: ProofType) -> Prover:
 def _autoload() -> None:
     # plain imports: a broken backend module raises here rather than
     # reading as "no prover registered"
-    from . import native, tpu_stark  # noqa: F401
+    from . import native, remote, tee, tpu_shard, tpu_stark  # noqa: F401

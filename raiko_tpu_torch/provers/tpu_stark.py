@@ -29,15 +29,16 @@ EVM execution tables (stark/airs/evm_air.py), and the prestate binding
 (provers/prestate.py) ties their storage originals and account records
 to the parent state.
 
-Not ported yet: the recursion seal.  A config that asks for it is refused
-with ``GuestError``: a payload without the statement would differ from
-the reference's for the same config.  ``verify_payload`` rejects a
-payload that carries ``seal``.
+With ``"seal": true`` the whole payload is sealed into one outer proof
+(provers/seal.py), as the reference does: a seal that fails is logged and
+its slot left out, and ``verify_payload`` checks a ``seal`` slot against
+the payload.
 
 Each statement is a ``Measurement`` span (``tpu_stark.reexecute``,
 ``tpu_stark.stark``, ``tpu_stark.mpt``, ``tpu_stark.tx_mpt``,
 ``tpu_stark.receipts_mpt``, ``tpu_stark.chain``, ``tpu_stark.evm``,
-``tpu_stark.prestate``) and a ``torch.profiler`` range of the same name.
+``tpu_stark.prestate``, ``tpu_stark.seal``) and a ``torch.profiler`` range
+of the same name.
 The EVM statement proves its trees on a thread pool, so the spans of the
 prover's stages inside it overlap, and each stage's closing
 ``torch.cuda.synchronize`` waits for the other tree's work too.
@@ -63,10 +64,6 @@ from .base import Prover, register
 
 DOMAIN_TAG = 0x52545031  # "RTP1"
 NUM_BLOCKS = 4
-
-# the payload slots of the statements this module does not prove yet
-NOT_PORTED = ("seal",)
-
 
 def transcript_blocks(instance_hash: bytes, num_blocks: int = NUM_BLOCKS):
     """[tag, nblocks, hash chunks...] packed into RATE-wide blocks."""
@@ -95,13 +92,6 @@ def _statement(slot: str):
         yield
 
 
-def refuse_unported(config: dict) -> None:
-    """Raise ``GuestError`` where the reference would prove a statement
-    that the port has not ported yet (the seal)."""
-    if config.get("seal"):
-        raise GuestError("tpu_stark: the recursion seal is not ported yet")
-
-
 class TpuStarkProver(Prover):
     proof_type = ProofType.TPU_STARK
 
@@ -114,7 +104,6 @@ class TpuStarkProver(Prover):
             ih = pi.instance_hash()
         if ih != output.hash:
             raise GuestError("instance hash mismatch in tpu_stark guest")
-        refuse_unported(config)
         # receipt cache (reference bonsai.rs:104-151): a prior proof of
         # the same statement under the same config short-circuits proving
         cached = proof_cache.load_proof(config, "tpu_stark", ih)
@@ -223,6 +212,23 @@ class TpuStarkProver(Prover):
                         pre = None
                     if pre is not None:
                         payload["prestate"] = pre
+        # whole-payload recursion seal (reference snarks.rs:92-157
+        # stark2snark): opt-in — the outer circuit pays O(width) gates
+        # per inner query, so sealing multiplies proving time
+        if config.get("seal"):
+            from .seal import prove_block_seal
+
+            try:
+                with _statement("seal"):
+                    payload["seal"] = prove_block_seal(
+                        payload, device, max_tables=config.get("seal_max_tables")
+                    )
+            except Exception as e:  # pragma: no cover
+                # an unsealable payload (e.g. mpt_version 1) must not
+                # kill the block proof; absence of the slot is visible
+                import logging
+
+                logging.getLogger(__name__).warning("sealing failed: %s", e)
         proof_cache.save_proof(config, "tpu_stark", ih, payload)
         return Proof(
             proof=json.dumps(payload),
@@ -685,7 +691,8 @@ def verify_evm_frames_payload(evm: dict, device) -> bool:
 
 def mpt_v2_group(mpt: dict, state_root: bytes | None = None):
     """Rebuild a keccak-mpt-v2 statement's (airs, publics, proofs) from
-    the payload STRUCTURE alone; None when the structure is invalid."""
+    the payload STRUCTURE alone; None when the structure is invalid.
+    Shared by the host verifier and the recursion seal (provers/seal.py)."""
     from ..stark.airs.containment import (
         ByteCodeAir,
         ContainAir,
@@ -786,11 +793,8 @@ def verify_mpt_payload(mpt: dict, device, state_root: bytes | None = None) -> bo
 
 def verify_payload(payload: dict, device) -> bool:
     """Reconstruct the AIR(s) from public data and verify the STARK(s) on
-    `device` (None: the CPU).  A payload carrying a statement that the
-    port does not prove yet (``NOT_PORTED``) is rejected."""
+    `device` (None: the CPU)."""
     if payload.get("kind") != "poseidon2-transcript-v1":
-        return False
-    if any(slot in payload for slot in NOT_PORTED):
         return False
     ih = bytes.fromhex(payload["instance_hash"])
     blocks = transcript_blocks(ih)
@@ -828,6 +832,11 @@ def verify_payload(payload: dict, device) -> bool:
         from .prestate import verify_prestate_binding
 
         if not verify_prestate_binding(payload, device):
+            return False
+    if "seal" in payload:
+        from .seal import verify_block_seal
+
+        if not verify_block_seal(payload, payload["seal"], device):
             return False
     return True
 

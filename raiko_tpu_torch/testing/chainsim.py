@@ -458,3 +458,73 @@ def _install_contract_support(cls):
 
 _install_contract_support(ChainSim)
 
+
+
+# --------------------------------------------------------------------------
+# contract-call services: the SGX-verifier registry + the proof verifier
+# (see provers/onchain.py for the call shapes)
+# --------------------------------------------------------------------------
+
+
+def install_sgx_verifier(sim, addr: bytes) -> dict:
+    """The on-chain SGX-instance registry (reference
+    sgx_register_utils.rs): registerInstance(bytes quote, address) ->
+    uint32 id.  Mock quotes are validated for the recognizable mock
+    header + bound address (the sim stands in for DCAP attestation)."""
+    from ..proto import abi
+    from ..provers.onchain import decode_register_instance
+
+    registry: dict = {"next_id": 1, "instances": {}}
+
+    def handler(data: bytes) -> bytes:
+        quote, instance = decode_register_instance(data)
+        if not quote.startswith(b"RAIKO-TPU-MOCK-QUOTE"):
+            raise ValueError("bad quote header")
+        if quote[20:40] != instance:
+            raise ValueError("quote does not bind the instance address")
+        iid = registry["next_id"]
+        registry["next_id"] += 1
+        registry["instances"][iid] = instance
+        return abi.encode(["uint32"], [iid])
+
+    sim.register_contract(addr, handler)
+    return registry
+
+
+def install_proof_verifier(sim, addr: bytes, device) -> None:
+    """The on-chain proof verifier (reference snarks.rs:159-205):
+    verifyProof(bytes32 journal, bytes seal) -> bool, where the seal is
+    the constant-shape final artifact and the handler runs the REAL
+    STARK verification on ``device`` (None: the CPU)."""
+    from ..proto import abi
+    from ..provers.onchain import decode_verify_proof, payload_from_seal
+
+    def handler(data: bytes) -> bytes:
+        journal, seal = decode_verify_proof(data)
+        try:
+            payload = payload_from_seal(seal)
+        except Exception:
+            return abi.encode(["bool"], [False])
+        kind = payload.get("kind", "")
+        ok = False
+        if kind == "seal-v2-artifact":
+            # whole-payload recursion seal (provers/seal.py): the outer
+            # proof covers EVERY inner STARK of the block payload
+            from ..provers.seal import verify_seal_artifact
+
+            ok = verify_seal_artifact(journal, seal, device)
+        elif kind == "poseidon2-transcript-sharded-recursive-v1":
+            from ..provers.tpu_shard import verify_sharded_recursive
+
+            ok = verify_sharded_recursive(payload, device) and bytes.fromhex(
+                payload["instance_hash"]
+            ) == journal
+        elif kind == "poseidon2-transcript-v1":
+            from ..provers.tpu_stark import verify_payload
+
+            ok = verify_payload(payload, device) and bytes.fromhex(
+                payload["instance_hash"]
+            ) == journal
+        return abi.encode(["bool"], [ok])
+
+    sim.register_contract(addr, handler)

@@ -7,8 +7,11 @@ port module, serves one v2 ``native`` request for a 16-tx taiko_a7 blob
 block through the port's server on the CPU, proves the same block again
 on the port's host path (``device=None``: host MSM, per-tx recovery), which
 shares no code with the kernels, runs the flagship commitment step,
-whose root must equal the JAX step's, and proves and verifies a fib AIR,
-whose proof must hash as the JAX package's golden proof does.
+whose root must equal the JAX step's, proves and verifies a fib AIR,
+whose proof must hash as the JAX package's golden proof does, and
+aggregates a smaller fib proof through the recursion circuit at
+``NUM_QUERIES`` 4, whose outer proof must hash as the JAX golden's
+(``stark_recursion_fib.json``) and verify.
 """
 
 import ast
@@ -131,14 +134,24 @@ from raiko_tpu_torch.stark.airs.fib import FibAir
 fib_trace, fib_publics = FibAir.trace(6)
 fib_proof = stark_prover.prove(FibAir(), fib_trace, fib_publics, device="cpu")
 fib_json = json.dumps(stark_serde.proof_to_dict(fib_proof), sort_keys=True)
+fib_verified = stark_verifier.verify(FibAir(), fib_proof, device="cpu")
+from raiko_tpu_torch.stark import recursion
+stark_prover.NUM_QUERIES = stark_verifier.NUM_QUERIES = 4
+rec_trace, rec_publics = FibAir.trace(4)
+rec_inner = stark_prover.prove(FibAir(), rec_trace, rec_publics, device="cpu")
+rec_table = recursion.InnerTable(FibAir(), 4, rec_publics)
+rec_outer = recursion.prove_recursion([[rec_table]], [[rec_inner]], "cpu")
+rec_json = json.dumps([stark_serde.proof_to_dict(p) for p in rec_outer], sort_keys=True)
 print(json.dumps({
     "status": r["data"]["status"],
     "input_equal": served.get("input") == host.input_hash == "0x" + out.hash.hex(),
     "kzg_equal": host.kzg_proof is not None and served.get("kzg_proof") == host.kzg_proof,
     "txs": len(gi.transactions),
     "root": root,
-    "fib_verified": stark_verifier.verify(FibAir(), fib_proof, device="cpu"),
+    "fib_verified": fib_verified,
     "fib_sha256": hashlib.sha256(fib_json.encode()).hexdigest(),
+    "recursion_verified": recursion.verify_recursion([[rec_table]], rec_outer, "cpu"),
+    "recursion_sha256": hashlib.sha256(rec_json.encode()).hexdigest(),
     "refused_loaded": sorted(m for m, mod in sys.modules.items()
                              if m.split(".")[0] in ("jax", "jaxlib", "raiko_tpu") and mod is not None),
 }))
@@ -164,4 +177,8 @@ def test_port_serves_and_commits_with_reference_refused():
     with open(os.path.join(REPO, "tests", "golden", "stark_fib.json")) as f:
         golden = json.load(f)  # the JAX package's proof (tools/make_stark_goldens.py)
     assert res["fib_sha256"] == golden["sha256"]
+    with open(os.path.join(REPO, "tests", "golden", "stark_recursion_fib.json")) as f:
+        golden = json.load(f)
+    assert res["recursion_verified"] is True
+    assert res["recursion_sha256"] == golden["sha256"]
     assert res["refused_loaded"] == []

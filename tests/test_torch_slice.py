@@ -31,7 +31,7 @@ from raiko_tpu.proto.types import Transaction as RefTransaction
 from raiko_tpu_torch import device as device_mod
 from raiko_tpu_torch.chain import SupportedChainSpecs
 from raiko_tpu_torch.core import provider
-from raiko_tpu_torch.core.interfaces import GuestError, ProofRequest, ProofType
+from raiko_tpu_torch.core.interfaces import ProofRequest, ProofType
 from raiko_tpu_torch.core.orchestrator import Raiko
 from raiko_tpu_torch.host import cli
 from raiko_tpu_torch.proto.types import Transaction
@@ -151,22 +151,39 @@ def test_v2_request_through_port_server(chain, reference_proof):
 
 
 def test_only_native_is_registered(chain):
-    # native and, since slice 3a, tpu_stark are registered; the other
-    # backends are later slices of the port: refused as the reference
-    # refuses an unregistered proof type
-    req = ProofRequest(block_number=2, network="taiko_a7", proof_type=ProofType.TPU_SHARD)
+    # every backend is registered since slice 3c: a tpu_shard request and a
+    # sealed tpu_stark request (statements other than the transcript off,
+    # NUM_QUERIES 4 as tests/test_recursion.py runs the recursion) are
+    # proven on the host path and verify
+    from raiko_tpu_torch.provers import tpu_shard, tpu_stark
+    from raiko_tpu_torch.stark import prover, verifier
+
+    off = {"mpt_statement": False, "body_statement": False, "chain_statement": False,
+           "evm_statement": False, "proof_cache": False}
+    req = ProofRequest(block_number=2, network="taiko_a7", proof_type=ProofType.TPU_SHARD,
+                       prover_args=dict(off))
     raiko = Raiko(SupportedChainSpecs(), req, None)
     gi = raiko.generate_input()
-    with pytest.raises(GuestError, match="no prover registered"):
-        raiko.prove(gi, raiko.get_output(gi))
-    # a tpu_stark statement not ported yet (here the seal) is refused,
-    # never left out of the payload
-    req = ProofRequest(block_number=2, network="taiko_a7", proof_type=ProofType.TPU_STARK,
-                       prover_args={"seal": True})
-    raiko = Raiko(SupportedChainSpecs(), req, None)
-    gi = raiko.generate_input()
-    with pytest.raises(GuestError, match="not ported yet"):
-        raiko.prove(gi, raiko.get_output(gi))
+    out = raiko.get_output(gi)
+    payload = json.loads(raiko.prove(gi, out).proof)
+    assert payload["kind"] == "block-sharded-v1" and payload["shards"] == 1
+    assert payload["transcript"]["kind"] == "poseidon2-transcript-sharded-v1"
+    assert tpu_shard.verify_block_sharded(payload, None)
+    saved = prover.NUM_QUERIES, verifier.NUM_QUERIES
+    prover.NUM_QUERIES = verifier.NUM_QUERIES = 4
+    try:
+        req = ProofRequest(block_number=2, network="taiko_a7", proof_type=ProofType.TPU_STARK,
+                           prover_args={**off, "seal": True})
+        raiko = Raiko(SupportedChainSpecs(), req, None)
+        gi = raiko.generate_input()
+        proof = raiko.prove(gi, raiko.get_output(gi))
+        payload = json.loads(proof.proof)
+        assert payload["seal"]["n_groups"] == 1 and payload["seal"]["unsealed"] == 0
+        assert tpu_stark.verify_payload(payload, None)
+        payload["seal"]["shapes"] = [[x + 1 for x in grp] for grp in payload["seal"]["shapes"]]
+        assert not tpu_stark.verify_payload(payload, None)
+    finally:
+        prover.NUM_QUERIES, verifier.NUM_QUERIES = saved
 
 
 def test_device_choice_is_explicit():

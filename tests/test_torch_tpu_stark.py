@@ -11,10 +11,9 @@ CPU, equals the JAX payload of ``tools/make_stark_goldens.py``
 (``stark_containment_chain.json``) byte for byte as ``json.dumps(payload,
 sort_keys=True)``, and the port's verifier accepts it and rejects a wrong
 root and tampered block counts.  The proof cache is the port's copy of
-``tests/test_proof_cache.py``; the registry returns the port's prover and
-still refuses ``tpu_shard``; a config that asks for the statement the port
-has not ported (the seal) is refused, and a request with EVM frames
-reaches the prover.  The ``slow`` test
+``tests/test_proof_cache.py``; the registry returns the port's provers; a
+config that asks for the seal, and a request with EVM frames, reach the
+prover, and ``verify_payload`` rejects a garbage ``seal`` slot.  The ``slow`` test
 proves the golden's 10-tx block on the CPU and the ``cuda`` test on a card,
 each in a subprocess under the golden's ``PYTHONHASHSEED``; each payload
 must hash as the JAX golden's (``stark_block_10tx.json``).
@@ -33,7 +32,7 @@ from raiko_tpu.provers import tpu_stark as jts
 from raiko_tpu.stark.airs import containment as jct
 from raiko_tpu.stark.airs import keccak_air as jka
 from raiko_tpu.utils import keccak256
-from raiko_tpu_torch.core.interfaces import GuestError, Proof, ProofType
+from raiko_tpu_torch.core.interfaces import Proof, ProofType
 from raiko_tpu_torch.fields import babybear as bb
 from raiko_tpu_torch.provers import base, proof_cache
 from raiko_tpu_torch.provers import tpu_stark as ts
@@ -301,36 +300,44 @@ def test_prover_short_circuits_on_cache_hit(tmp_path, monkeypatch):
     assert proof.input_hash == "0x" + IH.hex()
 
 
-# --- the registry and the statements not ported yet
+# --- the registry and the statements once refused
 
 
 def test_registry_returns_the_port_prover():
+    from raiko_tpu_torch.provers import tee, tpu_shard
+
     assert isinstance(base.get_prover(ProofType.TPU_STARK), ts.TpuStarkProver)
     assert base.get_prover(ProofType.NATIVE).proof_type == ProofType.NATIVE
-    for refused in (ProofType.TPU_SHARD, ProofType.TEE):
-        with pytest.raises(GuestError):
-            base.get_prover(refused)
+    assert isinstance(base.get_prover(ProofType.TPU_SHARD), tpu_shard.TpuShardProver)
+    assert isinstance(base.get_prover(ProofType.TEE), tee.TeeProver)
 
 
 @pytest.mark.parametrize(
-    "config, frames, refused",
+    "config, frames, sealed",
     [
         ({}, [{"code": b""}], False),
         ({"evm_statement": True}, [{"code": b""}], False),
         ({"evm_statement": False, "seal": True}, [], True),
     ],
 )
-def test_unported_statements_are_refused(monkeypatch, config, frames, refused):
-    """Only the seal is refused: a request with frames, under the default
+def test_unported_statements_are_refused(monkeypatch, config, frames, sealed):
+    """No statement is refused: a request with frames, under the default
     config or with the EVM statement asked for, reaches the prover (the
-    stubbed transcript prover raises that it ran)."""
+    stubbed transcript prover raises that it ran), and a sealed request
+    reaches the seal on the context's device with its ``seal_max_tables``."""
+    from raiko_tpu_torch.provers import seal
+
     _stub_instance(monkeypatch, {"frames": frames})
-    if refused:
-        with pytest.raises(GuestError, match="not ported yet"):
-            ts.TpuStarkProver().run(object(), _Out(), config, base.ProverCtx(device=None))
-    else:
+    if not sealed:
         with pytest.raises(AssertionError, match="the prover ran"):
             ts.TpuStarkProver().run(object(), _Out(), config, base.ProverCtx(device=None))
+        return
+    monkeypatch.setattr(ts, "prove_transcript", lambda ih, device: {"kind": "poseidon2-transcript-v1"})
+    monkeypatch.setattr(seal, "prove_block_seal",
+                        lambda payload, device, max_tables=None: {"device": device, "max_tables": max_tables})
+    config = {**config, "seal_max_tables": 1}
+    proof = ts.TpuStarkProver().run(object(), _Out(), config, base.ProverCtx(device="cpu"))
+    assert json.loads(proof.proof)["seal"] == {"device": "cpu", "max_tables": 1}
 
 
 def test_no_frames_needs_no_evm_statement(monkeypatch):
@@ -342,9 +349,11 @@ def test_no_frames_needs_no_evm_statement(monkeypatch):
 
 
 def test_verify_payload_rejects_unported_slots():
-    assert ts.NOT_PORTED == ("seal",)
-    for slot in ts.NOT_PORTED:
-        assert not ts.verify_payload({"kind": "poseidon2-transcript-v1", slot: {}}, "cpu")
+    """A valid transcript payload with a garbage ``seal`` slot is rejected."""
+    payload = ts.prove_transcript(IH, "cpu")
+    assert ts.verify_payload(payload, "cpu")
+    for garbage in ({}, {"kind": "seal-v2"}, {"kind": "seal-v2", "shapes": [[5]], "outer": []}):
+        assert not ts.verify_payload({**payload, "seal": garbage}, "cpu")
     assert not ts.verify_payload({"kind": "something-else"}, "cpu")
 
 

@@ -5,6 +5,8 @@
     JAX_PLATFORMS=cpu python tools/make_stark_goldens.py fib affine # some
     JAX_PLATFORMS=cpu python tools/make_stark_goldens.py block_10tx # minutes
     JAX_PLATFORMS=cpu python tools/make_stark_goldens.py block_10tx_evm  # half an hour
+    JAX_PLATFORMS=cpu python tools/make_stark_goldens.py recursion_fib seal_transcript
+    JAX_PLATFORMS=cpu python tools/make_stark_goldens.py shard_block_10tx  # half an hour
 
 Each case proves one AIR with ``raiko_tpu.stark.prover`` on the CPU, checks
 the proof with ``raiko_tpu.stark.verifier.verify_tables`` (a golden that
@@ -49,6 +51,27 @@ are written only if the JAX package's verifier accepts them:
   prestate binding on), kept as ``block_10tx`` is, with the EVM
   statement's covered and total frame candidates.
 
+Five cases aggregate proofs through the recursion circuit
+(``stark/recursion.py``) or prove the sharded backend, and are written
+only if the JAX package's verifier accepts them:
+
+- ``recursion_fib``: a fib proof (log_n ``RECURSION_FIB_LOG_N``) proven
+  and aggregated by ``recursion.prove_recursion`` with ``NUM_QUERIES``
+  set to ``SMALL_QUERIES`` in the prover and the verifier (as
+  tests/test_recursion.py does); the golden keeps the inner and the outer
+  proof's sha256 (the outer proof as ``json.dumps([proof_to_dict(p) for p
+  in outer], sort_keys=True)``) and the outer tables' shapes;
+- ``seal_transcript``: the seal (``seal.prove_block_seal``) of the
+  transcript payload ``prove_transcript(bytes(range(32)))`` at production
+  parameters, its sha256 as ``json.dumps(seal, sort_keys=True)``;
+- ``shard_recursive_q4`` and ``shard_recursive``:
+  ``tpu_shard.prove_sharded_recursive(bytes(range(32)))`` at
+  ``SMALL_QUERIES`` and at production parameters, the sha256 of
+  ``json.dumps(payload, sort_keys=True)``;
+- ``shard_block_10tx``: the 10-tx block of ``block_10tx_evm`` proven by
+  the JAX ``tpu_shard`` backend with prover args ``SHARD_BLOCK_ARGS``,
+  kept as ``block_10tx`` is.
+
 The state-trie statement's message order follows the reference
 preflight's set of accessed accounts (``ProviderDb.accessed_accounts``),
 whose iteration order follows Python's string hashing; so the tool runs
@@ -81,6 +104,10 @@ CHAIN_SEED = 11
 BLOCK_TXS = 10
 BLOCK_ARGS = {"evm_statement": False, "proof_cache": False}
 BLOCK_EVM_ARGS = {"proof_cache": False}  # the default config: EVM frames and prestate on
+SHARD_BLOCK_ARGS = {"proof_cache": False}  # the default config: recursion off, 4 shard workers
+RECURSION_FIB_LOG_N = 4
+SMALL_QUERIES = 4  # NUM_QUERIES of the small-parameter recursion cases
+SHARD_IH = bytes(range(32))  # the instance hash of the seal and shard cases
 HASH_SEED = "0"  # PYTHONHASHSEED of every run compared against block_10tx
 # the payload slots that hold a STARK statement, in the order run() proves them
 STATEMENTS = ("stark", "mpt", "tx_mpt", "receipts_mpt", "chain", "evm", "prestate")
@@ -399,14 +426,15 @@ def golden_evm_call_tree() -> dict:
     }
 
 
-def golden_block_10tx(case: str = "block_10tx", args: dict = BLOCK_ARGS) -> dict:
+def golden_block_10tx(case: str = "block_10tx", args: dict = BLOCK_ARGS,
+                      proof_type: str = "tpu_stark") -> dict:
     from raiko_tpu.chain import SupportedChainSpecs
     from raiko_tpu.core.interfaces import ProofRequest, ProofType
     from raiko_tpu.core.orchestrator import Raiko
     from raiko_tpu.provers import tpu_stark
 
     build_jax_chain(BLOCK_TXS)
-    req = ProofRequest(block_number=1, network="taiko_a7", proof_type=ProofType.TPU_STARK,
+    req = ProofRequest(block_number=1, network="taiko_a7", proof_type=ProofType(proof_type),
                        prover_args=dict(args))
     raiko = Raiko(SupportedChainSpecs(), req)
     gi = raiko.generate_input()
@@ -417,23 +445,132 @@ def golden_block_10tx(case: str = "block_10tx", args: dict = BLOCK_ARGS) -> dict
     seconds = time.perf_counter() - t0
     payload = json.loads(proof.proof)
     t0 = time.perf_counter()
-    if not tpu_stark.verify_payload(payload):
+    if proof_type == "tpu_shard":
+        from raiko_tpu.provers import tpu_shard
+
+        ok = tpu_shard.verify_block_sharded(payload)
+    else:
+        ok = tpu_stark.verify_payload(payload)
+    if not ok:
         raise SystemExit(f"{case}: the JAX package's verifier rejects its own payload")
     verify_seconds = time.perf_counter() - t0
     return {
         "case": case,
         "inputs": {"txs": BLOCK_TXS, "network": "taiko_a7", "block_number": 1, "prover_args": args,
-                   "python_hash_seed": HASH_SEED},
+                   "proof_type": proof_type, "python_hash_seed": HASH_SEED},
         "block_hash": gi.block_header.hash().hex(),
         "instance_hash": out.hash.hex(),
         "input": proof.input_hash,
         "kzg_proof": proof.kzg_proof,
         "sha256": _sha(payload),
         "statements": {slot: _sha(payload[slot]) for slot in sorted(payload)},
-        "tables": statement_tables(payload),
+        **({"tables": statement_tables(payload)} if proof_type == "tpu_stark" else
+           {"shards": payload["shards"]}),
         **({"evm_covered": payload["evm"]["covered"], "evm_total": payload["evm"]["total"]}
            if "evm" in payload else {}),
         "eager_quotient": True,
+        "jax_cpu_prove_seconds": seconds,
+        "jax_cpu_verify_seconds": verify_seconds,
+    }
+
+
+class small_queries:
+    """NUM_QUERIES = ``SMALL_QUERIES`` in the JAX prover and verifier for
+    the duration of the block (the verifier imports the constant)."""
+
+    def __enter__(self):
+        from raiko_tpu.stark import prover, verifier
+
+        self.saved = prover.NUM_QUERIES, verifier.NUM_QUERIES
+        prover.NUM_QUERIES = verifier.NUM_QUERIES = SMALL_QUERIES
+
+    def __exit__(self, *exc):
+        from raiko_tpu.stark import prover, verifier
+
+        prover.NUM_QUERIES, verifier.NUM_QUERIES = self.saved
+
+
+def _outer_shapes(outer) -> list:
+    return [[int(p.log_n), int(p.width)] for p in outer]
+
+
+def golden_recursion_fib() -> dict:
+    from raiko_tpu.stark import prover, recursion, verifier
+    from raiko_tpu.stark.airs.fib import FibAir
+    from raiko_tpu.stark.serde import proof_to_dict
+
+    os.environ.pop("RAIKO_EAGER_QUOTIENT", None)
+    with small_queries():
+        air = FibAir()
+        trace, publics = FibAir.trace(RECURSION_FIB_LOG_N)
+        inner = prover.prove(air, trace, publics)
+        table = recursion.InnerTable(air, RECURSION_FIB_LOG_N, publics)
+        t0 = time.perf_counter()
+        outer = recursion.prove_recursion([[table]], [[inner]])
+        seconds = time.perf_counter() - t0
+        if not recursion.verify_recursion([[table]], outer):
+            raise SystemExit("recursion_fib: the JAX package's verifier rejects its own proof")
+    outer_d = [proof_to_dict(p) for p in outer]
+    return {
+        "case": "recursion_fib",
+        "inputs": {"log_n": RECURSION_FIB_LOG_N, "a": 1, "b": 1, "num_queries": SMALL_QUERIES},
+        "inner_sha256": _sha(proof_to_dict(inner)),
+        "sha256": _sha(outer_d),
+        "proof_bytes": len(json.dumps(outer_d, sort_keys=True)),
+        "outer_tables": _outer_shapes(outer),
+        "roots": [d["trace_root"] for d in outer_d],
+        "jax_cpu_prove_seconds": seconds,
+    }
+
+
+def golden_seal_transcript() -> dict:
+    from raiko_tpu.provers import seal
+    from raiko_tpu.provers.tpu_stark import prove_transcript
+
+    os.environ.pop("RAIKO_EAGER_QUOTIENT", None)
+    payload = prove_transcript(SHARD_IH)
+    t0 = time.perf_counter()
+    s = seal.prove_block_seal(payload)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not seal.verify_block_seal(payload, s):
+        raise SystemExit("seal_transcript: the JAX package's verifier rejects its own seal")
+    verify_seconds = time.perf_counter() - t0
+    return {
+        "case": "seal_transcript",
+        "inputs": {"instance_hash": SHARD_IH.hex()},
+        "payload_sha256": _sha(payload),
+        "sha256": _sha(s),
+        "proof_bytes": len(json.dumps(s, sort_keys=True)),
+        "shapes": s["shapes"],
+        "outer_tables": [[d["log_n"], d["width"]] for d in s["outer"]],
+        "jax_cpu_prove_seconds": seconds,
+        "jax_cpu_verify_seconds": verify_seconds,
+    }
+
+
+def golden_shard_recursive(case: str, small: bool) -> dict:
+    import contextlib
+
+    from raiko_tpu.provers import tpu_shard
+
+    os.environ.pop("RAIKO_EAGER_QUOTIENT", None)
+    with small_queries() if small else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        payload = tpu_shard.prove_sharded_recursive(SHARD_IH)
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if not tpu_shard.verify_sharded_recursive(payload):
+            raise SystemExit(f"{case}: the JAX package's verifier rejects its own payload")
+        verify_seconds = time.perf_counter() - t0
+    return {
+        "case": case,
+        "inputs": {"instance_hash": SHARD_IH.hex(), "shard_blocks": tpu_shard.SHARD_BLOCKS,
+                   "num_queries": SMALL_QUERIES if small else None},
+        "sha256": _sha(payload),
+        "proof_bytes": len(json.dumps(payload, sort_keys=True)),
+        "boundaries": payload["boundaries"],
+        "outer_tables": [[d["log_n"], d["width"]] for d in payload["outer"]],
         "jax_cpu_prove_seconds": seconds,
         "jax_cpu_verify_seconds": verify_seconds,
     }
@@ -444,6 +581,11 @@ PAYLOAD_CASES = {
     "evm_call_tree": golden_evm_call_tree,
     "block_10tx": golden_block_10tx,
     "block_10tx_evm": lambda: golden_block_10tx("block_10tx_evm", BLOCK_EVM_ARGS),
+    "recursion_fib": golden_recursion_fib,
+    "seal_transcript": golden_seal_transcript,
+    "shard_recursive_q4": lambda: golden_shard_recursive("shard_recursive_q4", True),
+    "shard_recursive": lambda: golden_shard_recursive("shard_recursive", False),
+    "shard_block_10tx": lambda: golden_block_10tx("shard_block_10tx", SHARD_BLOCK_ARGS, "tpu_shard"),
 }
 
 

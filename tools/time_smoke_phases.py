@@ -6,9 +6,10 @@ checkouts compare in one call.
 
 Runs the checkout's own chip_smoke.py functions: its device and build
 phases, the setup points' upload, then each PHASE named (default: ops; any
-of kernels, stark_kernels, ops, kzg, stark, stark_prove, block_prove), each as
+of kernels, stark_kernels, ops, kzg, stark, stark_prove, block_prove, seal), each as
 chip_smoke.py runs it, checks included.  Prints the phases' own lines, then
-one JSON line per PHASE with its seconds.  Needs one CUDA card; the
+one JSON line per PHASE with its seconds, then one per payload
+verification a phase started in the background.  Needs one CUDA card; the
 checkout's chip_smoke.py refuses JAX and the JAX package on import.
 """
 
@@ -21,7 +22,7 @@ import os
 import sys
 import time
 
-PHASES = ("kernels", "stark_kernels", "ops", "kzg", "stark", "stark_prove", "block_prove")
+PHASES = ("kernels", "stark_kernels", "ops", "kzg", "stark", "stark_prove", "block_prove", "seal")
 
 
 def main() -> int:
@@ -54,6 +55,13 @@ def main() -> int:
         fn(**{k: given[k] for k in inspect.signature(fn).parameters})
         torch.cuda.synchronize()
         print(json.dumps({"label": args.label, "phase": name, "seconds": time.perf_counter() - t0}), flush=True)
+    # the payload verifications a phase started in the background
+    for pending in getattr(smoke, "_BACKGROUND", []):
+        verified, seconds = pending.result()
+        print(json.dumps({"label": args.label, "verify": pending.kind, "verified": verified, "seconds": seconds}),
+              flush=True)
+        if not verified:
+            raise SystemExit(f"time_smoke_phases: a served {pending.kind} payload does not verify")
     return 0
 
 
