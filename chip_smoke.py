@@ -92,6 +92,34 @@ prints one JSON line; any failure raises and exits non-zero.
    the host's hashing of the Fiat-Shamir transcript between stages), its
    launches and its peak device memory; the keccak chunk is proven twice,
    cold and warm, the warm proof checked against the golden only;
+8b. parallel: the distributed layer (``raiko_tpu_torch/parallel``) on
+   MESH_RANKS ranks spawned by ``parallel.mesh.start_ranks``, through
+   ``parallel.dryrun.dryrun_multichip``: NCCL with a card a rank when
+   ``torch.cuda.device_count()`` reaches MESH_RANKS, else gloo with every
+   rank on cuda:0 (the choice is printed, a ``parallel_backend`` line,
+   before any collective).  On the ranks: the sharded trace commitment of
+   a keccak-chunk-shaped trace (1,024 x 4,160), whose root must equal
+   ``commit_step``'s; the proofs of the transcript AIR and of the keccak
+   chunk (from their goldens' inputs) under ``stark.prover.set_mesh``
+   with every commitment sharded, each hashing as its JAX golden and
+   accepted by the port's verifier; ``ntt_dist`` at 2^22, gathered, equal
+   to B5's ``ntt``; ``msm_dist`` over the 4,096 setup points equal to
+   ``msm`` as an affine point; the dry run's small statements (an MPT
+   containment, a prestate keccak batch, two EVM frames on the frame pool,
+   a ``tpu_shard`` block of three shards on the shard pool, both pools one
+   worker under the mesh) equal to their single-device payloads and
+   verified.  The single-device results are computed in this process
+   while the ranks start; the ranks wait for them before their first
+   check, and time each kernel check after a warm-up call, REPS times.
+   Every rank must count sharded commitments, route by the cutoff, and
+   load no refused module (each rank refuses them itself); the ranks'
+   launches, summed, must show B1, B2, B5 (ntt, intt, ntt_coset),
+   poseidon2_hash_rows, poseidon2_merkle and poseidon2_compress.  One
+   ``parallel`` line: backend, ranks, GPU count, seconds and where they
+   went (ranks ready, references, checks, the parent's check), sharded
+   commitments per rank, each check's wall ms (the median of the reps,
+   and every rep), launches summed and per rank.  On one card the ranks
+   share it, so the times are the collective layer's cost, not a speedup;
 9. check: the port's orchestrator proves each served block again on its
    host path (``device=None``: host MSM, per-tx sender recovery, no
    kernel), and each served ``input`` and ``kzg_proof`` must equal its
@@ -167,8 +195,9 @@ prints one JSON line; any failure raises and exits non-zero.
    device memory, the artifact's bytes, ``shard_workers``; one
    ``sealed_block`` line.
 
-The kernels line gives each kernel's launches per transcript seal and per
-served ``tpu_shard`` request beside the earlier paths'.  The two served
+The kernels line gives each kernel's launches per transcript seal, per
+served ``tpu_shard`` request and per mesh run (phase parallel, summed over
+the ranks) beside the earlier paths'.  The two served
 100-tx payloads are verified by ``chip_smoke.py --verify KIND PATH``
 processes started as each payload arrives (verification is mostly host
 work, as long as the proof), whose results the run waits for; the run
@@ -292,6 +321,18 @@ SHARD_SERVED_ARGS = {"proof_cache": False, "recursion": True, "max_evm_frames": 
 SEALED_TXS = 10
 SEALED_FRAMES = 1
 SEALED_ARGS = {"proof_cache": False, "seal": True, "seal_max_tables": 1, "max_evm_frames": SEALED_FRAMES}
+# phase parallel: the distributed layer (raiko_tpu_torch/parallel) on
+# MESH_RANKS ranks, at full width: the keccak chunk's trace commitment and
+# meshed proof, the NTT at 2^MESH_NTT_LOG, the MSM over a blob's 4,096
+# setup points, and the dry run's small statements; these kernels must
+# launch on the ranks
+MESH_RANKS = 2
+MESH_NTT_LOG = 22
+MESH_MSM_POINTS = 4096
+MESH_PROOFS = ("transcript", "keccak_chunk")
+MESH = ("ec_add", "ec_weighted_fold", "ntt", "intt", "ntt_coset", "poseidon2_hash_rows", "poseidon2_merkle",
+        "poseidon2_compress")
+MESH_TIMEOUT_S = 300.0
 # The state-trie statement's message order follows the reference
 # preflight's set of accessed accounts, whose order follows Python's string
 # hashing: the run re-executes itself under the golden's PYTHONHASHSEED
@@ -1134,21 +1175,10 @@ def phase_stark() -> dict:
 def golden_case(case: str):
     """(AIR, trace, publics, golden) of a JAX golden, built by the port from
     the golden's inputs."""
-    from raiko_tpu_torch.stark.airs.fib import FibAir
-    from raiko_tpu_torch.stark.airs.keccak_air import KeccakBatchSpongeAir
-    from raiko_tpu_torch.stark.airs.poseidon2_air import Poseidon2TranscriptAir
+    from raiko_tpu_torch.testing.goldens import golden_air
 
-    with open(os.path.join(ROOT, "tests", "golden", f"stark_{case}.json")) as f:
-        g = json.load(f)
-    inp = g["inputs"]
-    if case == "fib":
-        trace, publics = FibAir.trace(inp["log_n"], inp["a"], inp["b"])
-        return FibAir(), trace, publics, g
-    if case == "transcript":
-        air = Poseidon2TranscriptAir(inp["blocks"])
-        return air, air.trace(), air.publics_for(air.compute_digest()), g
-    air = KeccakBatchSpongeAir([bytes.fromhex(m) for m in inp["messages"]])
-    return air, air.trace(), air.publics(), g
+    g = load_golden(case)
+    return (*golden_air(case, g["inputs"]), g)
 
 
 def phase_stark_prove() -> dict:
@@ -1208,6 +1238,43 @@ def phase_stark_prove() -> dict:
                 raise AssertionError(f"{case}: kernels not launched by the proof: {missing}")
         per_proof[case] = launches
     return per_proof["keccak_chunk"]
+
+
+def phase_parallel() -> dict:
+    """The distributed layer through ``parallel.dryrun`` on MESH_RANKS
+    spawned ranks, each result against the single-device path on the card;
+    returns the kernel launches of the ranks, summed."""
+    import torch
+
+    from raiko_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    # chosen from the GPU count before any collective: NCCL with a card a
+    # rank, else gloo with every rank on cuda:0
+    backend, devices = dryrun.backend_for(MESH_RANKS, "cuda")
+    emit("parallel_backend", backend=backend, ranks=MESH_RANKS, devices=devices,
+         device_count=torch.cuda.device_count())
+    goldens = {case: load_golden(case) for case in MESH_PROOFS}
+    spec = {
+        "trace_commit": [(KECCAK_ROWS, KECCAK_COLS // MESH_RANKS)],
+        "ntt": [MESH_NTT_LOG],
+        "msm": [MESH_MSM_POINTS],
+        "proofs": {case: g["inputs"] for case, g in goldens.items()},
+        "golden_sha256": {case: g["sha256"] for case, g in goldens.items()},
+        "statements": list(dryrun.STATEMENTS),
+        "refuse": REFUSED,
+    }
+    rep = dryrun.dryrun_multichip(MESH_RANKS, "cuda", backend, spec, timeout_s=MESH_TIMEOUT_S)
+    emit("parallel", backend=rep["backend"], ranks=rep["ranks"], devices=rep["devices"],
+         device_count=torch.cuda.device_count(), seconds=time.perf_counter() - t0,
+         phase_seconds=rep["seconds"], sharded_commitments_per_rank=rep["sharded_per_rank"], checks_ms=rep["ms"],
+         checks_ms_max=rep["ms_max"], checks_reps_ms=rep["reps_ms"], reps=dryrun.REPS,
+         verified=rep["verified"], launches=rep["launches"], launches_per_rank=rep["launches_per_rank"],
+         ntt_log=MESH_NTT_LOG, msm_points=MESH_MSM_POINTS, trace=[KECCAK_ROWS, KECCAK_COLS])
+    missing = [k for k in MESH if rep["launches"].get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the mesh run: {missing}")
+    return rep["launches"]
 
 
 def random_blob(seed: int) -> bytes:
@@ -2150,6 +2217,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels not launched on the commitment path: {missing}")
     launches.update({k: stark_launches[k] for k in STARK})
     proof_launches = phase_stark_prove()
+    mesh_launches = phase_parallel()
     launches.update(ops_launches)
     check_requests(served)
     block_launches, pending = phase_block_prove()
@@ -2169,7 +2237,8 @@ def main(argv=None) -> int:
          "events_ms": r["events_ms"], "launches_per_keccak_proof": proof_launches.get(k, 0),
          "launches_per_block_proof": block_launches.get(k, 0),
          "launches_per_transcript_seal": seal_launches["seal"].get(k, 0),
-         "launches_per_shard_request": seal_launches["tpu_shard"].get(k, 0)}
+         "launches_per_shard_request": seal_launches["tpu_shard"].get(k, 0),
+         "launches_per_mesh_run": mesh_launches.get(k, 0)}
         for k, r in kres.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

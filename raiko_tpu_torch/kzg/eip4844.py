@@ -59,29 +59,30 @@ def setup():
       roots_brp:   np.uint64-free list of 4096 ints, roots in brp order
     """
     path = os.path.join(os.path.dirname(__file__), "data", "trusted_setup.npz")
-    z = np.load(path)
+    with np.load(path) as z:  # each array read once: z[name] reads it anew
+        g1_arr, g2_arr, roots_arr = z["g1_lagrange"], z["g2_monomial"], z["roots_natural"]
     g1 = [
         (
-            int.from_bytes(bytes(z["g1_lagrange"][i, 0]), "big"),
-            int.from_bytes(bytes(z["g1_lagrange"][i, 1]), "big"),
+            int.from_bytes(bytes(g1_arr[i, 0]), "big"),
+            int.from_bytes(bytes(g1_arr[i, 1]), "big"),
         )
         for i in range(4096)
     ]
     g2 = [
         (
             (
-                int.from_bytes(bytes(z["g2_monomial"][i, 0, 0]), "big"),
-                int.from_bytes(bytes(z["g2_monomial"][i, 0, 1]), "big"),
+                int.from_bytes(bytes(g2_arr[i, 0, 0]), "big"),
+                int.from_bytes(bytes(g2_arr[i, 0, 1]), "big"),
             ),
             (
-                int.from_bytes(bytes(z["g2_monomial"][i, 1, 0]), "big"),
-                int.from_bytes(bytes(z["g2_monomial"][i, 1, 1]), "big"),
+                int.from_bytes(bytes(g2_arr[i, 1, 0]), "big"),
+                int.from_bytes(bytes(g2_arr[i, 1, 1]), "big"),
             ),
         )
         for i in range(65)
     ]
     roots_nat = [
-        int.from_bytes(bytes(z["roots_natural"][i]), "big") for i in range(4096)
+        int.from_bytes(bytes(roots_arr[i]), "big") for i in range(4096)
     ]
     roots_brp = [roots_nat[_brp(i)] for i in range(4096)]
     return {"g1_lagrange": g1, "g2_monomial": g2, "roots_brp": roots_brp}

@@ -31,6 +31,7 @@ futures are read are the reference's, so the payload is deterministic."""
 from __future__ import annotations
 
 import json
+from concurrent.futures import Future
 
 from ..core.interfaces import GuestError, Proof, ProofType
 from ..evm.builder import calculate_block_header
@@ -198,6 +199,25 @@ def verify_sharded(payload: dict, device) -> bool:
     return True
 
 
+class _InlinePool:
+    """A pool of one that runs each call when it is submitted, in the
+    caller's thread."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def submit(self, fn, *args) -> Future:
+        fut: Future = Future()
+        try:
+            fut.set_result(fn(*args))
+        except BaseException as exc:  # delivered through the future, as a pool's
+            fut.set_exception(exc)
+        return fut
+
+
 def prove_block_sharded(
     ih: bytes, header, collect: dict, config: dict, device
 ) -> dict:
@@ -208,7 +228,12 @@ def prove_block_sharded(
     from ..stark.airs import evm_air as ea
     from . import tpu_stark as ts
 
-    workers = max(1, int(config.get("shard_workers", 4)))
+    # under a mesh (stark.prover.set_mesh) the pool proves one shard at a
+    # time: threads would enter the mesh's collectives in an order that
+    # differs from rank to rank.  One worker runs the shards in submission
+    # order in the caller's thread (on its CUDA device), and the payload
+    # reads the results by key, so it is the same
+    workers = stark_prover.pool_workers(max(1, int(config.get("shard_workers", 4))))
     recursion = bool(config.get("recursion"))
 
     tasks: dict = {}
@@ -276,7 +301,7 @@ def prove_block_sharded(
                 continue
             frame_traces.append(ft)
 
-    with ThreadPoolExecutor(max_workers=workers) as ex:
+    with ThreadPoolExecutor(max_workers=workers) if workers > 1 else _InlinePool() as ex:
         futs = {k: ex.submit(fn) for k, fn in tasks.items()}
         frame_futs = [
             ex.submit(ea.prove_frame_trace, ft, _stark_device(device)) for ft in frame_traces

@@ -577,6 +577,10 @@ def prove_evm_frames(
         return None
     if workers is None:
         workers = int(_os.environ.get("RAIKO_FRAME_WORKERS", "2"))
+    # under a mesh (stark.prover.set_mesh) the pool runs one thread: threads
+    # would enter the mesh's collectives in an order that differs from rank
+    # to rank; the trees then prove one after another, the payload the same
+    workers = stark_prover.pool_workers(workers)
 
     def _prove(item):
         txi, ft = item

@@ -34,6 +34,10 @@ synchronisation, so a listener reads the device's time with the host's;
 host hashes the transcript.  Each span is also a ``torch.profiler`` range
 of the same name, so a profile attributes the kernels to their stage.
 
+``set_mesh(mesh)`` routes the column commitments (trace, aux, fixed) over
+the ranks of a ``parallel.mesh.Mesh`` (``parallel/stark_dist.py``), bit for
+bit the same; every rank runs the same proof.
+
 Degree budget: per-Air via ``quotient_chunks`` = max constraint degree
 minus 1 (2 chunks for degree <= 3, 4 for degree <= 5; blowup 4).
 """
@@ -43,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import hashlib
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -52,6 +57,7 @@ from .. import convert
 from .. import device as device_mod
 from ..fields import babybear as bb
 from ..fields import babybear_ext as ef
+from ..kernels import LaunchCounter
 from ..ops import merkle, ntt
 from ..ops import poseidon2 as p2
 from ..utils.measurement import Measurement
@@ -255,11 +261,48 @@ def _ef_dot(coeffs: torch.Tensor, zpows: torch.Tensor) -> torch.Tensor:
     return _modsum(bb.mont_mul(coeffs[:, :, None], zpows[None, :, :]), 1)
 
 
+# the mesh of set_mesh; None: one device.  While it is set, the trace, aux
+# and fixed commitments of every prove/prove_tables call (and
+# fixed_commit_root) go through parallel/stark_dist.make_commit_cols_dist.
+_MESH = None
+# sharded commitments, counted where they run, as kernels.LAUNCHES counts
+# launches, so a run can show that it took the sharded path
+SHARDED = LaunchCounter()
+
+
+def set_mesh(mesh=None) -> None:
+    """Route the prover's column commitments over `mesh`, a
+    ``parallel.mesh.Mesh`` (bit-exact with the single-device path); None
+    restores the single-device path.  Every rank of the mesh must set it
+    and then prove the same statements in the same order."""
+    global _MESH
+    _MESH = mesh
+
+
+def pool_workers(workers: int) -> int:
+    """How many threads a pool that proves several tables at once may run:
+    `workers`, or 1 while a mesh is set.  Threads would enter the mesh's
+    collectives in an order that differs from rank to rank, which hangs the
+    job or pairs the wrong tensors; one thread proves the items in order."""
+    return 1 if _MESH is not None else workers
+
+
 def commit_cols(cols_m: torch.Tensor, shift: int) -> tuple[torch.Tensor, torch.Tensor, list[torch.Tensor]]:
     """Commit (W, n) columns in Montgomery form on their device, the
-    counterpart of ``_commit_cols_local``.  Returns (coeffs (W, n),
-    lde (W, n·4) in bit-reversed coset order, Merkle levels of the LDE's
-    rows)."""
+    counterpart of ``_commit_cols``.  Returns (coeffs (W, n), lde (W, n·4)
+    in bit-reversed coset order, Merkle levels of the LDE's rows).
+
+    With a mesh set, commitments of at least ``RAIKO_DIST_MIN_CELLS`` cells
+    (default 2^18, the reference's: a small table costs more in collectives
+    than it saves) take the sharded path; the choice reads only shapes, so
+    every rank takes the same branch."""
+    if _MESH is not None:
+        from ..parallel import stark_dist
+
+        thresh = int(os.environ.get("RAIKO_DIST_MIN_CELLS", str(1 << 18)))
+        if cols_m.numel() >= thresh and stark_dist.can_commit(_MESH, cols_m.shape[1]):
+            SHARDED.add("commit_cols")
+            return stark_dist.make_commit_cols_dist(_MESH)(cols_m, shift)
     coeffs = ntt.interpolate(cols_m)
     lde = ntt.lde_from_coeffs(coeffs, BLOWUP_LOG, shift)
     levels = merkle.commit(p2.hash_rows(lde.T))

@@ -6,7 +6,8 @@ checkouts compare in one call.
 
 Runs the checkout's own chip_smoke.py functions: its device and build
 phases, the setup points' upload, then each PHASE named (default: ops; any
-of kernels, stark_kernels, ops, kzg, stark, stark_prove, block_prove, seal), each as
+of kernels, stark_kernels, ops, kzg, stark, stark_prove, parallel, block_prove,
+seal), each as
 chip_smoke.py runs it, checks included.  Prints the phases' own lines, then
 one JSON line per PHASE with its seconds, then one per payload
 verification a phase started in the background.  Needs one CUDA card; the
@@ -22,7 +23,7 @@ import os
 import sys
 import time
 
-PHASES = ("kernels", "stark_kernels", "ops", "kzg", "stark", "stark_prove", "block_prove", "seal")
+PHASES = ("kernels", "stark_kernels", "ops", "kzg", "stark", "stark_prove", "parallel", "block_prove", "seal")
 
 
 def main() -> int:
