@@ -39,7 +39,16 @@ prints one JSON line; any failure raises and exits non-zero.
    256, 2^16 and 2^20; poseidon2_compress at 2,048 pairs.  B5, ntt_coset,
    poseidon2_merkle and poseidon2_compress record the card's time per call
    as a CUDA graph of calls (below about 0.05 ms the host's cost per call
-   is longer than the kernel), their CUDA-event means beside it;
+   is longer than the kernel), their CUDA-event means beside it; then
+   Q1, the quotient's constraint evaluation (``quotient``: the AIR's
+   recorded tape interpreted over the LDE rows, its G segments' partials
+   added by ``quotient_sum``), through ``ops.quotient_cuda`` on the EVM
+   CPU table of the golden call tree (32 x 1,995, recorded: against the
+   tape's plain version and the op-by-op evaluation, both timed, with the
+   tape's size) and the keccak chunk (timed), and on the call tree's
+   other 16 tables, fib and the transcript AIR (one ``kernel_edges``
+   line), each from its golden's trace with seeded challenges and alpha
+   (``testing/quotient.py``); quotient_sum on the EVM table's G x 4 x m;
 4. ops: the ops entry points that reach B3, B6, the Keccak and SHA-256
    kernels, B5 without its prologue and poseidon2_compress, counts reset
    just before and all six positive after: B3
@@ -91,7 +100,11 @@ prints one JSON line; any failure raises and exits non-zero.
    stage (each stage ends with a device synchronisation; ``transcript`` is
    the host's hashing of the Fiat-Shamir transcript between stages), its
    launches and its peak device memory; the keccak chunk is proven twice,
-   cold and warm, the warm proof checked against the golden only;
+   cold and warm, the warm proof checked against the golden only; then the
+   EVM call tree of ``stark_evm_call_tree.json`` (17 tables, one
+   transcript) through ``evm_air.prove_call_tree(..., "cuda")``, cold and
+   warm, each payload hashing as the golden's; every proof must launch
+   Q1 (``quotient`` and ``quotient_sum``) too;
 8b. parallel: the distributed layer (``raiko_tpu_torch/parallel``) on
    MESH_RANKS ranks spawned by ``parallel.mesh.start_ranks``, through
    ``parallel.dryrun.dryrun_multichip``: NCCL with a card a rank when
@@ -195,7 +208,10 @@ prints one JSON line; any failure raises and exits non-zero.
    device memory, the artifact's bytes, ``shard_workers``; one
    ``sealed_block`` line.
 
-The kernels line gives each kernel's launches per transcript seal, per
+Every proof of phases block_prove and seal must launch Q1 (``quotient``
+and ``quotient_sum``) besides B5 and the Poseidon2 kernels.  The kernels
+line gives Q1's ``launches`` from the served 100-tx ``tpu_stark`` request,
+and each kernel's launches per transcript seal, per
 served ``tpu_shard`` request and per mesh run (phase parallel, summed over
 the ranks) beside the earlier paths'.  The two served
 100-tx payloads are verified by ``chip_smoke.py --verify KIND PATH``
@@ -278,9 +294,17 @@ SOURCES = {
     # XLA in the JAX package
     "keccak_f1600": ("raiko_tpu_torch/csrc/keccak_f1600.cu", "raiko_tpu/ops/keccak.py:65"),
     "sha256_compress": ("raiko_tpu_torch/csrc/sha256.cu", "raiko_tpu/ops/sha256.py:54"),
+    # the XLA quotient program the reference jits per AIR (or its host
+    # numpy for eager_quotient AIRs)
+    "quotient": ("raiko_tpu_torch/csrc/babybear_quotient.cu", "raiko_tpu/stark/prover.py:546"),
+    "quotient_sum": ("raiko_tpu_torch/csrc/babybear_quotient.cu", "raiko_tpu/stark/prover.py:546"),
 }
 SERVED = ("ec_add", "ec_weighted_fold", "shamir_ladder")
 STARK = ("intt", "ntt_coset", "poseidon2_hash_rows", "poseidon2_merkle")
+# Q1, the quotient's constraint evaluation, and its sum of segments: every
+# proof launches them besides the commitment's kernels
+QUOTIENT = ("quotient", "quotient_sum")
+PROVE = STARK + QUOTIENT
 OPS = ("ec_double", "ntt_mxu", "keccak_f1600", "sha256_compress", "ntt", "poseidon2_compress")
 # the proofs of phase stark_prove, each against its JAX golden
 PROOF_CASES = ("fib", "transcript", "keccak_chunk")
@@ -298,7 +322,7 @@ BLOCK_SERVED_TXS = 100
 # (NVIDIA H100 80GB HBM3, 700 W), about 4.7 s and 5.2 s a tree
 BLOCK_SERVED_FRAMES = 2
 BLOCK_SERVED_ARGS = {**BLOCK_ARGS, "max_evm_frames": BLOCK_SERVED_FRAMES}
-BLOCK = SERVED + STARK
+BLOCK = SERVED + PROVE
 # phase seal: the recursion seal of the transcript payload and the
 # recursively aggregated transcript shards, each against its JAX golden,
 # then a served tpu_shard block (recursion on), a sealed tpu_stark block,
@@ -718,6 +742,76 @@ def _ntt_work(bsz: int, log_n: int, inverse: bool) -> tuple[float, float]:
     if log_n > ntt_cuda.ROW_PASS_MAX_LOG_N:
         prods += bsz * n  # cross twiddles
     return 8 * bsz * n, BB_MUL * prods
+
+
+def quotient_work(tape, m: int) -> dict:
+    """The least work of one Q1 call (its ``Card.bound`` arguments) on a
+    table of `m` LDE rows: the tape's columns read once, the selectors and
+    next_perm read and the (4, m) numerator written once; per row each
+    distinct node of the constraint graph once (a product: 4 multiplies),
+    the fold's four products per constraint row and the selectors' 16,
+    and its sums (2 operations each: add, and the canonical min)."""
+    st = tape.stats
+    fold = 4 * tape.rows + 16
+    return dict(nbytes=4 * m * (st["columns_read"] + 4 + 4) + 8 * m,
+                mults=BB_MUL * (st["mul_distinct"] + fold) * m,
+                logic=2 * (st["arith_distinct"] - st["mul_distinct"] + fold) * m)
+
+
+def phase_quotient(card: Card) -> dict:
+    """Q1 (``quotient`` and its ``quotient_sum``) on the card against its
+    plain versions, bit for bit: the EVM CPU table of the golden call tree
+    (recorded; against the tape's plain version and the op-by-op
+    evaluation), the keccak chunk (timed), and every other call-tree table,
+    fib and the transcript AIR (one ``kernel_edges`` line)."""
+    import numpy as np
+    import torch
+
+    from raiko_tpu_torch.fields import babybear as bb
+    from raiko_tpu_torch.ops import quotient_cuda
+    from raiko_tpu_torch.testing.goldens import call_tree_tables, golden_air
+    from raiko_tpu_torch.testing.quotient import numerator_case
+
+    results = {}
+    tables = call_tree_tables(load_golden("evm_call_tree")["inputs"])
+    cases = []
+    for air, trace, publics in tables[1:] + [golden_air(c, load_golden(c)["inputs"]) for c in ("fib", "transcript")]:
+        case = numerator_case(air, trace, publics, "cuda", SEED)
+        cases.append((f"{type(air).__name__} {trace.shape[0]}x{trace.shape[1]}", case.kernel(), case.plain()))
+    check_edges("quotient", cases)
+    keccak = golden_air("keccak_chunk", load_golden("keccak_chunk")["inputs"])
+    for name, (air, trace, publics) in (("evm_cpu", tables[0]), ("keccak_chunk", keccak[:3])):
+        case = numerator_case(air, trace, publics, "cuda", SEED)
+        tape = case.tape()
+        got = case.kernel()
+        want, plain_ms = once_ms(case.plain)
+        extra = {"table": name, "segments": tape.segments,
+                 "launch_shape": quotient_cuda.launch_shape(tape, case.dom.m), **{k: tape.stats[k] for k in (
+                "constraints", "rows", "instructions", "arith", "arith_one_segment", "arith_distinct",
+                "max_slots", "slots", "columns_read", "uniform", "uniform_levels")}}
+        if name == "evm_cpu":
+            op, op_ms = once_ms(case.op_by_op)
+            extra.update(equal_op_by_op=bool(torch.equal(got.long(), op.long())), op_by_op_ms=op_ms)
+            if not extra["equal_op_by_op"]:
+                raise AssertionError("Q1 on the EVM CPU table differs from the op-by-op numerator")
+        m = case.dom.m
+        # ms: Q1's launches alone (quotient and quotient_sum, their host
+        # half prepared once); call_ms: the wrapper's whole call, the
+        # scalars' gather and upload included
+        check_kernel(card, results, "quotient", (tape.rows, air.width, m), got, want, plain_ms,
+                     cuda_ms(case.launches(), 10), record=name == "evm_cpu", call_ms=cuda_ms(case.kernel, 10),
+                     **quotient_work(tape, m), **extra)
+        if name == "evm_cpu":
+            partial = torch.as_tensor(np.random.default_rng(SEED).integers(0, bb.P, (tape.segments, 4, m)),
+                                      dtype=torch.int32, device="cuda")
+            got = quotient_cuda.quotient_sum(partial)
+            want, plain_ms = once_ms(lambda: quotient_cuda.quotient_sum_plain(partial))
+            check_kernel(card, results, "quotient_sum", tuple(partial.shape), got, want, plain_ms,
+                         graph_ms(lambda: quotient_cuda.quotient_sum(partial), 20),
+                         nbytes=4 * 4 * m * (tape.segments + 1), mults=0,
+                         logic=2 * 4 * m * tape.segments,
+                         events_ms=cuda_ms(lambda: quotient_cuda.quotient_sum(partial), 20))
+    return results
 
 
 def phase_stark_kernels(card: Card) -> dict:
@@ -1233,11 +1327,57 @@ def phase_stark_prove() -> dict:
                 raise AssertionError(f"{case}: the proof differs from the JAX golden (roots that differ: {differ})")
             if not verified:
                 raise AssertionError(f"{case}: the port's verifier rejects the card's proof")
-            missing = [k for k in STARK if launches.get(k, 0) <= 0]
+            missing = [k for k in PROVE if launches.get(k, 0) <= 0]
             if missing:
                 raise AssertionError(f"{case}: kernels not launched by the proof: {missing}")
         per_proof[case] = launches
+    prove_call_tree_golden()
     return per_proof["keccak_chunk"]
+
+
+def prove_call_tree_golden() -> None:
+    """The EVM call tree of ``tests/golden/stark_evm_call_tree.json`` (17
+    tables in one transcript, the EVM CPU table 1,995 columns) through
+    ``evm_air.prove_call_tree(..., "cuda")``, twice: its payload must hash
+    as the JAX golden's, and each proof must launch Q1 and the commitment's
+    kernels; one ``stark_prove`` line each, with the stage times."""
+    import hashlib
+
+    import torch
+
+    from raiko_tpu_torch import kernels
+    from raiko_tpu_torch.stark.airs import evm_air as ea
+    from raiko_tpu_torch.utils.measurement import Measurement
+
+    g = load_golden("evm_call_tree")
+    inp = g["inputs"]
+    root = ea.execute_frame(bytes.fromhex(inp["caller"]), ea.FrameEnv(**inp["env"]), inp["gas"],
+                            world={inp["callee_address"]: {"code": bytes.fromhex(inp["callee"])}},
+                            warm_addresses=set())
+    for run in ("cold", "warm"):
+        stages: dict = {}
+
+        def record(title: str, seconds: float) -> None:
+            key = title.removeprefix("stark.") + "_ms"
+            stages[key] = stages.get(key, 0.0) + seconds * 1e3
+
+        token = Measurement.subscribe(record)
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.reset()
+        try:
+            payload, ms = once_ms(lambda: ea.prove_call_tree(root, "cuda"))
+        finally:
+            Measurement.unsubscribe(token)
+        launches = kernels.LAUNCHES.snapshot()
+        sha = hashlib.sha256(json.dumps(payload, sort_keys=True).encode()).hexdigest()
+        emit("stark_prove", case="evm_call_tree", run=run, tables=len(payload["starks"]), prove_s=ms / 1e3,
+             stages_ms=stages, launches=launches, sha256=sha, golden_sha256=g["sha256"],
+             equal_golden=sha == g["sha256"], jax_cpu_prove_s=g["jax_cpu_prove_seconds"])
+        if sha != g["sha256"]:
+            raise AssertionError("the EVM call tree's payload differs from the JAX golden")
+        missing = [k for k in PROVE if launches.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"evm_call_tree: kernels not launched by the proof: {missing}")
 
 
 def phase_parallel() -> dict:
@@ -1621,7 +1761,7 @@ def phase_block_prove() -> dict:
     if not all(checks.values()):
         differ = [slot for slot, want in g["statements"].items() if sha(payload.get(slot)) != want]
         raise AssertionError(f"10-tx block: {checks}; statements that differ from the JAX golden: {differ}")
-    missing = [k for k in STARK if launches.get(k, 0) <= 0]
+    missing = [k for k in PROVE if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"10-tx block: kernels not launched by the proof: {missing}")
     if not p2_calls.get("raiko_p2_absorb") or not p2_calls.get("raiko_p2_row_path_ok"):
@@ -1810,7 +1950,7 @@ def seal_transcript() -> dict:
          golden_sha256=g["sha256"], jax_cpu_prove_s=g["jax_cpu_prove_seconds"], **checks)
     if not all(checks.values()):
         raise AssertionError(f"the transcript seal: {checks}")
-    missing = [k for k in STARK if launches.get(k, 0) <= 0]
+    missing = [k for k in PROVE if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"the transcript seal: kernels not launched: {missing}")
     return launches
@@ -1835,7 +1975,7 @@ def recursive_shards() -> dict:
               "other_boundary_rejected": not tpu_shard.verify_sharded_recursive(bad, cuda)}
     if not all(checks.values()):
         raise AssertionError(f"the recursive shards: {checks}")
-    missing = [k for k in STARK if launches.get(k, 0) <= 0]
+    missing = [k for k in PROVE if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"the recursive shards: kernels not launched: {missing}")
     return {"circuit_s": spans.get("recursion.circuit", 0.0), "prove_s": prove_s, "verify_s": verify_ms / 1e3,
@@ -2202,6 +2342,7 @@ def main(argv=None) -> int:
     setup32 = convert.pack32(convert.setup_points(torch.device("cuda")))
     kres = phase_kernels(card, setup32)
     kres.update(phase_stark_kernels(card))
+    kres.update(phase_quotient(card))
     ops_results, ops_launches = phase_ops(card, setup32)
     kres.update(ops_results)
     check_mxu_sass(pending_sass)
@@ -2221,6 +2362,7 @@ def main(argv=None) -> int:
     launches.update(ops_launches)
     check_requests(served)
     block_launches, pending = phase_block_prove()
+    launches.update({k: block_launches[k] for k in QUOTIENT})
     seal_launches = phase_seal()
     verified, verify_s = pending.result()
     emit("block_verify", block="100tx", verify_s=verify_s, background=True, verified=verified)

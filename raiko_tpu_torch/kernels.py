@@ -32,7 +32,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("bls12_381_g1.cu", "secp256k1_ladder.cu", "babybear_ntt.cu", "babybear_poseidon2.cu",
-           "babybear_ntt_mxu.cu", "keccak_f1600.cu", "sha256.cu")
+           "babybear_ntt_mxu.cu", "keccak_f1600.cu", "sha256.cu", "babybear_quotient.cu")
 HEADERS = ("field32.cuh", "field32_coop.cuh", "babybear.cuh", "order_by_count.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +52,9 @@ _ENTRIES = {
     "raiko_babybear_ntt_mxu": 6 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
     "raiko_keccak_f1600": 5 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
     "raiko_sha256_compress": 5 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
+    "raiko_babybear_quotient": 12 * [ctypes.c_void_p] + 3 * [ctypes.c_int] + [ctypes.c_longlong]
+    + 4 * [ctypes.c_int],
+    "raiko_babybear_quotient_sum": 2 * [ctypes.c_void_p] + [ctypes.c_int, ctypes.c_longlong],
 }
 
 

@@ -73,6 +73,12 @@ class Poseidon2TranscriptAir(Air):
         _, _, mu = p2.host_constants()
         self.mu = mu
 
+    def structure_key(self) -> tuple:
+        """eval's last-row constraints cover the whole state of a shard and
+        the rate of a transcript: two graphs at one width and size (``mu``
+        is the permutation's constant)."""
+        return (self.expose_full_state,)
+
     # -- public values ----------------------------------------------------
     def publics_for(self, digest: list[int]) -> list[int]:
         first = p2.host_ext_linear(

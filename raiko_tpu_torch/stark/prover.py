@@ -6,7 +6,7 @@ Port of raiko_tpu/stark/prover.py.  Pipeline:
     -> column iNTT (interpolation) + coset LDE       [B5: intt, ntt_coset]
     -> row hashing + Merkle commit                    [poseidon2_hash_rows,
                                                        poseidon2_merkle]
-    -> constraint evaluation over the LDE domain      [torch]
+    -> constraint evaluation over the LDE domain      [Q1: the AIR's tape]
     -> quotient: coset iNTT, chunks, LDE, commit      [B5, Poseidon2]
     -> out-of-domain openings at zeta, zeta*g         [torch]
     -> DEEP composition polynomial                    [torch]
@@ -14,7 +14,10 @@ Port of raiko_tpu/stark/prover.py.  Pipeline:
     -> grinding, query openings                       [host, gathers]
 
 On a CUDA device every NTT, row hash and Merkle tree is one launch of its
-kernel; on the CPU the wrappers run the kernels' plain versions.  The
+kernel, and each table's constraint evaluation is kernel Q1 over the AIR's
+recorded tape (``quotient_tape``, ``ops/quotient_cuda.py``; one or two
+launches); on the CPU the wrappers run the kernels' plain versions, the
+tape's through ``quotient_tape.quotient_numerator_plain``.  The rest of the
 quotient, OOD, DEEP and fold arithmetic are torch ops in int64 (the
 reference's XLA fusions).  Field arithmetic is exact, so the reference's
 log-depth modular add trees become one int64 sum and one reduction
@@ -58,11 +61,11 @@ from .. import device as device_mod
 from ..fields import babybear as bb
 from ..fields import babybear_ext as ef
 from ..kernels import LaunchCounter
-from ..ops import merkle, ntt
+from ..ops import merkle, ntt, quotient_cuda
 from ..ops import poseidon2 as p2
 from ..utils.measurement import Measurement
-from . import fri
-from .air import Air, ConstraintBuilder, Probe
+from . import fri, quotient_tape
+from .air import Air
 from .channel import Channel
 from .domain import Domain
 
@@ -113,136 +116,6 @@ def _modsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Modular sum over `dim` (the reference's log-depth add tree): one
     int64 sum, exact while x.shape[dim]·(p - 1) < 2^63, and one reduction."""
     return bb._i64(x).sum(dim) % bb.P
-
-
-class _ProverAlgebra:
-    """Vectorized base-field constraint evaluation over the LDE domain.
-    Every tensor lives on one device; values are int64 Montgomery, and
-    constants are Python ints, which broadcast on any device."""
-
-    def __init__(
-        self,
-        lde: torch.Tensor,
-        next_perm: torch.Tensor,
-        publics: torch.Tensor,
-        fixed_lde: torch.Tensor | None = None,
-        aux_lde: torch.Tensor | None = None,
-        chal: torch.Tensor | None = None,
-        bus: torch.Tensor | None = None,
-    ):
-        self._dev = lde.device
-        self._lde = lde  # (W, m) Montgomery
-        self._next = next_perm  # (m,) int64
-        self._publics = publics  # (k,) Montgomery
-        self._fixed = fixed_lde
-        self._aux = aux_lde  # (aux_W, m) Montgomery
-        self._chal = chal  # (4 * num_challenges,) Montgomery
-        self._bus = bus  # (4 * num_bus_values,) Montgomery
-
-    def _idx(self, cols) -> torch.Tensor:
-        return torch.as_tensor(list(cols), dtype=torch.int64, device=self._dev)
-
-    def local(self, c: int):
-        return self._lde[c]
-
-    def next(self, c: int):
-        return self._lde[c].index_select(0, self._next)
-
-    def fixed(self, c: int):
-        return self._fixed[c]
-
-    def aux(self, c: int):
-        return self._aux[c]
-
-    def aux_next(self, c: int):
-        return self._aux[c].index_select(0, self._next)
-
-    def challenge_coord(self, k: int):
-        return self._chal[k]
-
-    def bus_coord(self, k: int):
-        return self._bus[k]
-
-    def public(self, i: int):
-        return self._publics[i]
-
-    def constant(self, v: int):
-        return _mont_const(v)
-
-    # block access (vectorized AIRs): (k, m) tensors
-    def local_block(self, cols):
-        return self._lde.index_select(0, self._idx(cols))
-
-    def next_block(self, cols):
-        return self.local_block(cols).index_select(1, self._next)
-
-    def fixed_block(self, cols):
-        return self._fixed.index_select(0, self._idx(cols))
-
-    def aux_block(self, cols):
-        return self._aux.index_select(0, self._idx(cols))
-
-    def aux_next_block(self, cols):
-        return self.aux_block(cols).index_select(1, self._next)
-
-    def public_block(self, idxs):
-        return self._publics.index_select(0, self._idx(idxs))[:, None]  # (k, 1) broadcast
-
-    def scale(self, k: int, a):
-        """Small-integer scaling via Montgomery constant multiply."""
-        return bb.mont_mul(a, self.constant(k))
-
-    def bit_block_code(self, bits_block, chi4: list, key, nbytes: int) -> list:
-        """Fast path for ConstraintBuilder.bit_block_code: one stacked
-        weight tensor and one modular sum.
-
-        bits_block: (8*nbytes, m); chi4: 4 scalar values; key: (m,) or
-        scalar.  Returns 4 (m,)-coordinate tensors."""
-        chi = torch.stack([bb._i64(c).to(self._dev).reshape(()) for c in chi4])  # (4,)
-        # chi^1..chi^nbytes via doubling on growing (j, 4) tensors
-        pows = chi[None, :]  # pows[i] = chi^(i+1)
-        while pows.shape[0] < nbytes:
-            top = pows[-1]  # chi^L
-            ext = ef.ef_mul(pows, top[None, :])  # chi^(L+1) .. chi^(2L)
-            pows = torch.cat([pows, ext], dim=0)
-        pows = pows[:nbytes]  # (nbytes, 4) Montgomery
-        scales = _mont_tensor([1 << b for b in range(8)], self._dev)
-        w = bb.mont_mul(pows[:, None, :], scales[None, :, None])  # (nb, 8, 4)
-        w = w.reshape(8 * nbytes, 4)
-        s = _modsum(bb.mont_mul(bits_block[:, :, None], w[:, None, :]))  # (m, 4)
-        out = [s[:, c] for c in range(4)]
-        out[0] = bb.add(out[0], key)
-        return out
-
-    def add(self, a, b):
-        return bb.add(a, b)
-
-    def sub(self, a, b):
-        return bb.sub(a, b)
-
-    def mul(self, a, b):
-        return bb.mont_mul(a, b)
-
-    # block fast paths (ConstraintBuilder.stack_block/linmap/...) --------
-    def stack(self, exprs):
-        return torch.stack([bb._i64(e) for e in exprs])
-
-    def linmap(self, mat, blk):
-        """Integer linear map of block rows: one broadcast Montgomery
-        multiply against the (k_out, k_in) constant matrix and one modular
-        sum."""
-        w = np.asarray(mat, dtype=np.uint64) % bb.P
-        w_mont = torch.as_tensor(((w * bb.R) % bb.P).astype(np.int64), device=self._dev)
-        return _modsum(bb.mont_mul(w_mont[:, :, None], blk[None, :, :]), 1)
-
-    def const_vec(self, vals):
-        return _mont_tensor(vals, self._dev)[:, None]
-
-    def block_rowsum(self, blk):
-        return _modsum(blk)
-
-    def concat_rows(self, parts):
-        return torch.cat([bb._i64(p) if p.dim() == 2 else bb._i64(p)[None, :] for p in parts], dim=0)
 
 
 def _ef_powers_device(z: tuple, count: int, device) -> torch.Tensor:
@@ -338,12 +211,6 @@ def _sinv_pows(shift: int, m: int) -> np.ndarray:
     return bb.np_to_mont(out)
 
 
-def _constraint_counts(air: Air) -> list[int]:
-    b = ConstraintBuilder(Probe())
-    air.eval(b)
-    return [c.count for c in b.constraints]
-
-
 def _inv_linear_consts(z: tuple, device):
     """Host part of 1/(x - z) for an EF scalar z, by the norm trick:
     N(x) = prod_sigma (x - sigma(z)) is a base-field quartic, so one
@@ -382,46 +249,52 @@ def _inv_linear_dev(xs: torch.Tensor, nb: torch.Tensor, cdev: torch.Tensor) -> t
     return bb.mont_mul(ef_acc, n_inv[:, None])
 
 
-def _quotient_stage(air: Air, dom: Domain, t_lde, aux_lde, chal, bus, fixed_m, apows, sinvp, publics_dev):
+@functools.lru_cache(maxsize=32)
+def _domain_tensors(log_n: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(next_perm (m,) int64, selectors (4, m) int32 Montgomery in
+    ``quotient_tape.KINDS`` order) of a domain, uploaded once per device."""
+    dom = Domain(log_n, BLOWUP_LOG)
+    sels = np.stack([dom.trans_sel, dom.first_inv, dom.last_inv, dom.all_inv]).astype(np.int32)
+    return (torch.as_tensor(dom.next_perm.astype(np.int64), device=device),
+            torch.as_tensor(sels, device=device))
+
+
+def _alpha_powers(alpha: tuple, count: int, device) -> torch.Tensor:
+    """(count, 4) int32 Montgomery alpha^0..alpha^(count-1): by doubling in
+    host numpy, one upload."""
+    pows = np.array([ef.H_ONE], dtype=np.uint64)
+    while len(pows) < count:
+        step = np.array(ef.h_pow(alpha, len(pows)), dtype=np.uint64)
+        pows = np.concatenate([pows, ef.npef_mul(pows, step[None, :])])
+    return torch.as_tensor(bb.np_to_mont(pows[:count].astype(np.uint32)).astype(np.int32), device=device)
+
+
+def quotient_numerator(air: Air, dom: Domain, t_lde, aux_lde, fixed_lde, publics, chal, bus,
+                       alpha: tuple) -> torch.Tensor:
+    """The (m, 4) quotient numerator of `air` on the LDE's device: the
+    AIR's cached tape through Q1 on a CUDA device, through its plain
+    version on the CPU.  publics, chal, bus: standard-form ints (chal and
+    bus flat); alpha: the EF challenge."""
+    dev = t_lde.device
+    next_perm, sels = _domain_tensors(dom.log_n, dev)
+    tape = quotient_tape.tape_for(air, dom.log_n, dom.m, fixed_lde is not None)
+    return quotient_cuda.quotient_numerator(tape, t_lde, aux_lde, fixed_lde, next_perm, publics, chal, bus,
+                                            _alpha_powers(alpha, tape.rows, dev), sels)
+
+
+def _quotient_stage(air: Air, dom: Domain, t_lde, aux_lde, fixed_m, publics, chal, bus, alpha, sinvp):
     """Constraint evaluation over the LDE domain, the quotient's coset iNTT,
     its chunks' LDE and their commitment, on the LDE's device.  Returns
     (chunks (4·nq, n), chunk LDE (4·nq, m), Merkle levels).
 
-    The reference jits this stage per AIR shape, or runs the evaluation in
-    host numpy for AIRs with ``eager_quotient``; with no compile step here,
-    every AIR takes this one path."""
-    dev = t_lde.device
-    n, m, nq = dom.n, dom.m, air.quotient_chunks
+    The reference jits the evaluation per AIR shape, or runs it in host
+    numpy for AIRs with ``eager_quotient``; here every AIR takes
+    ``quotient_numerator``."""
+    n, nq = dom.n, air.quotient_chunks
     fixed_lde = (
-        ntt.lde_from_coeffs(ntt.interpolate(fixed_m), BLOWUP_LOG, dom.shift).long()
-        if fixed_m is not None
-        else None
+        ntt.lde_from_coeffs(ntt.interpolate(fixed_m), BLOWUP_LOG, dom.shift) if fixed_m is not None else None
     )
-    next_perm = torch.as_tensor(dom.next_perm.astype(np.int64), device=dev)
-    alg = _ProverAlgebra(
-        t_lde.long(), next_perm, publics_dev, fixed_lde,
-        aux_lde.long() if aux_lde is not None else None, chal, bus,
-    )
-    builder = ConstraintBuilder(alg)
-    air.eval(builder)
-    sels = {
-        kind: torch.as_tensor(v.astype(np.int64), device=dev)
-        for kind, v in (
-            ("transition", dom.trans_sel),
-            ("first_row", dom.first_inv),
-            ("last_row", dom.last_inv),
-            ("all_rows", dom.all_inv),
-        )
-    }
-    q_ef = torch.zeros((m, 4), dtype=torch.int64, device=dev)
-    for con, pd in zip(builder.constraints, apows):
-        if con.count == 1:
-            base_val = bb.mont_mul(con.expr, sels[con.kind])  # (m,)
-            q_ef = ef.ef_add(q_ef, bb.mont_mul(pd[0][None, :], base_val[:, None]))
-        else:
-            blk = bb.mont_mul(con.expr, sels[con.kind][None, :])  # (k, m)
-            q_ef = ef.ef_add(q_ef, _modsum(bb.mont_mul(pd[:, None, :], blk[:, :, None])))
-    del builder, alg
+    q_ef = quotient_numerator(air, dom, t_lde, aux_lde, fixed_lde, publics, chal, bus, alpha)
     # chunking: intt over the coset -> unshift -> nq chunks -> LDE + commit
     q_coeffs = bb.mont_mul(ntt.intt(q_ef.T.contiguous().to(torch.int32)), sinvp)
     chunks = torch.cat([q_coeffs[:, j * n : (j + 1) * n] for j in range(nq)], dim=0)  # (4*nq, n)
@@ -555,7 +428,7 @@ def prove_tables(
     for c in ctxs:
         air = c["air"]
         c["a_coeffs"] = c["a_lde"] = c["a_levels"] = None
-        c["chal_dev"] = None
+        c["chal"] = []
         c["aux_root_std"] = []
         if air.aux_width:
             with _stage("stark.aux_commit", dev):
@@ -567,7 +440,7 @@ def prove_tables(
                 a_root = merkle.root(c["a_levels"])
                 channel.absorb_digest(a_root)
                 c["aux_root_std"] = _std_list(a_root)
-                c["chal_dev"] = _mont_tensor([x for ch in chal_t for x in ch], dev)
+                c["chal"] = [x for ch in chal_t for x in ch]
 
     # 3. bus values (challenge-dependent public EF scalars), absorbed
     for c in ctxs:
@@ -595,7 +468,6 @@ def _finish_table(c: dict, channel: Channel, dev: torch.device) -> StarkProof:
     t_coeffs, t_lde, t_levels, t_root = c["t_coeffs"], c["t_lde"], c["t_levels"], c["t_root"]
     a_coeffs, a_lde, a_levels = c["a_coeffs"], c["a_lde"], c["a_levels"]
     bus = c["bus"]
-    bus_dev = _mont_tensor([x for v in bus for x in v], dev) if bus else None
 
     committed_fixed = c["committed_fixed"]
     f_coeffs, f_lde = c["f_coeffs"], c["f_lde"]
@@ -603,22 +475,12 @@ def _finish_table(c: dict, channel: Channel, dev: torch.device) -> StarkProof:
 
     # 2+3. constraint evaluation + quotient + chunk commit (one stage)
     alpha = _challenge_ef(channel)
-    counts = _constraint_counts(air)
-    apows = []
-    apow = ef.H_ONE
-    for count in counts:
-        pows = []
-        for _ in range(count):
-            pows.append(apow)
-            apow = ef.h_mul(apow, alpha)
-        apows.append(ef.to_device(pows, dev))
     nq = air.quotient_chunks
     sinvp = torch.as_tensor(_sinv_pows(dom.shift, m).astype(np.int32), device=dev)
-    publics_dev = _mont_tensor(publics, dev)
 
     with _stage("stark.quotient", dev):
         chunks, q_lde, q_levels = _quotient_stage(
-            air, dom, t_lde, a_lde, c["chal_dev"], bus_dev, c["fixed_m"], apows, sinvp, publics_dev
+            air, dom, t_lde, a_lde, c["fixed_m"], publics, c["chal"], [x for v in bus for x in v], alpha, sinvp
         )
         q_root = merkle.root(q_levels)
         channel.absorb_digest(q_root)

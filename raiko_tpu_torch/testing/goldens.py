@@ -27,3 +27,25 @@ def golden_air(case: str, inputs: dict):
         air = KeccakBatchSpongeAir([bytes.fromhex(m) for m in inputs["messages"]])
         return air, air.trace(), air.publics()
     raise ValueError(f"no golden case {case!r}")
+
+
+def call_tree_tables(inputs: dict) -> list:
+    """(AIR, trace, publics) of every table of the EVM call tree of
+    ``tests/golden/stark_evm_call_tree.json``'s inputs, in the order
+    ``evm_air.prove_call_tree`` proves them."""
+    from ..stark.airs import evm_air as ea
+    from ..stark.airs import evm_call as ec
+
+    root = ea.execute_frame(bytes.fromhex(inputs["caller"]), ea.FrameEnv(**inputs["env"]), inputs["gas"],
+                            world={inputs["callee_address"]: {"code": bytes.fromhex(inputs["callee"])}},
+                            warm_addresses=set())
+    fts = ea.flatten_call_tree(root)
+    tables = []
+    for ft in fts:
+        tables.extend(ea.frame_tables(ft))
+        tables.extend(ea._frame_extra_tables(ft))
+    groups, events = ea.balance_journal(fts)
+    if groups:
+        bal = ec.EvmBalanceAir(groups)
+        tables.append((bal, bal.trace(events), bal.publics()))
+    return tables

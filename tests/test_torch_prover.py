@@ -42,6 +42,7 @@ from raiko_tpu_torch.stark.airs.fib import FibAir
 from raiko_tpu_torch.stark.airs.keccak_air import KeccakBatchSpongeAir
 from raiko_tpu_torch.stark.airs.permcheck import PermutationAir
 from raiko_tpu_torch.stark.airs.poseidon2_air import Poseidon2TranscriptAir
+from raiko_tpu_torch.testing.quotient import ProverAlgebra
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
@@ -211,8 +212,9 @@ _W, _M, _AUX_W = 6, 64, 8
 
 
 def _algebras():
-    """The port's and the reference's _ProverAlgebra over the same seeded
-    LDEs, next-row permutation, publics, challenges and bus values."""
+    """The port's op-by-op algebra (``testing.quotient.ProverAlgebra``, what
+    the tape is held to) and the reference's _ProverAlgebra over the same
+    seeded LDEs, next-row permutation, publics, challenges and bus values."""
     rng = np.random.default_rng(7)
 
     def mont(shape):
@@ -222,8 +224,8 @@ def _algebras():
     publics, chal, bus = mont((5,)), mont((8,)), mont((4,))
     nxt = rng.permutation(_M).astype(np.int32)
     t = lambda a: convert.words_from_numpy(a, "cpu").long()  # noqa: E731
-    port = prover._ProverAlgebra(t(lde), torch.as_tensor(nxt.astype(np.int64)), t(publics), t(fixed), t(aux),
-                                 t(chal), t(bus))
+    port = ProverAlgebra(t(lde), torch.as_tensor(nxt.astype(np.int64)), t(publics), t(fixed), t(aux), t(chal),
+                         t(bus))
     ref = jprover._ProverAlgebra(jnp.asarray(lde), nxt, jnp.asarray(publics), jnp.asarray(fixed),
                                  jnp.asarray(aux), jnp.asarray(chal), jnp.asarray(bus))
     return port, ref

@@ -30,13 +30,16 @@ def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
-def start(doc: str) -> argparse.Namespace:
-    """Parse ``--root`` and ``--label``, print nvidia-smi's name and power
-    limit, put the checkout under ``--root`` first on ``sys.path``, build its
-    kernels and emit the build's ptxas lines.  Exits without a CUDA card."""
+def start(doc: str, extra=None) -> argparse.Namespace:
+    """Parse ``--root`` and ``--label`` (and what `extra` adds to the
+    parser), print nvidia-smi's name and power limit, put the checkout under
+    ``--root`` first on ``sys.path``, build its kernels and emit the build's
+    ptxas lines.  Exits without a CUDA card."""
     parser = argparse.ArgumentParser(description=doc.splitlines()[0])
     parser.add_argument("--root", default=REPO, help="checkout whose raiko_tpu_torch to time")
     parser.add_argument("--label", default="", help="a name for this checkout in the output")
+    if extra is not None:
+        extra(parser)
     args = parser.parse_args()
     import torch
 
