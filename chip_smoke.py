@@ -41,14 +41,18 @@ prints one JSON line; any failure raises and exits non-zero.
    as a CUDA graph of calls (below about 0.05 ms the host's cost per call
    is longer than the kernel), their CUDA-event means beside it; then
    Q1, the quotient's constraint evaluation (``quotient``: the AIR's
-   recorded tape interpreted over the LDE rows, its G segments' partials
-   added by ``quotient_sum``), through ``ops.quotient_cuda`` on the EVM
-   CPU table of the golden call tree (32 x 1,995, recorded: against the
-   tape's plain version and the op-by-op evaluation, both timed, with the
-   tape's size) and the keccak chunk (timed), and on the call tree's
-   other 16 tables, fib and the transcript AIR (one ``kernel_edges``
-   line), each from its golden's trace with seeded challenges and alpha
-   (``testing/quotient.py``); quotient_sum on the EVM table's G x 4 x m;
+   recorded tape walked over the LDE rows, L lanes a row, a step of L
+   independent instructions at a time; its G segments' partials added by
+   ``quotient_sum``; its uniform values by ``quotient_uniform``), through
+   ``ops.quotient_cuda`` on the EVM CPU table of the golden call tree (32
+   x 1,995, recorded: against the tape's plain version and the op-by-op
+   evaluation, both timed, with the tape's size and layout) and the
+   keccak chunk (timed), and on the call tree's other 16 tables, fib and
+   the transcript AIR (one ``kernel_edges`` line), each from its golden's
+   trace with seeded challenges and alpha (``testing/quotient.py``), one
+   ``quotient_layout`` line per table (L, G, steps, staged columns, shared
+   bytes a block, launches of one call); quotient_uniform on the EVM
+   table against ``Tape.scalars``; quotient_sum on its G x 4 x m;
 4. ops: the ops entry points that reach B3, B6, the Keccak and SHA-256
    kernels, B5 without its prologue and poseidon2_compress, counts reset
    just before and all six positive after: B3
@@ -104,7 +108,8 @@ prints one JSON line; any failure raises and exits non-zero.
    EVM call tree of ``stark_evm_call_tree.json`` (17 tables, one
    transcript) through ``evm_air.prove_call_tree(..., "cuda")``, cold and
    warm, each payload hashing as the golden's; every proof must launch
-   Q1 (``quotient`` and ``quotient_sum``) too;
+   Q1 (``quotient``; the call tree ``quotient_uniform`` and
+   ``quotient_sum`` too);
 8b. parallel: the distributed layer (``raiko_tpu_torch/parallel``) on
    MESH_RANKS ranks spawned by ``parallel.mesh.start_ranks``, through
    ``parallel.dryrun.dryrun_multichip``: NCCL with a card a rank when
@@ -208,8 +213,9 @@ prints one JSON line; any failure raises and exits non-zero.
    device memory, the artifact's bytes, ``shard_workers``; one
    ``sealed_block`` line.
 
-Every proof of phases block_prove and seal must launch Q1 (``quotient``
-and ``quotient_sum``) besides B5 and the Poseidon2 kernels.  The kernels
+Every proof of phases block_prove and seal must launch Q1 (``quotient``;
+a block's EVM statement ``quotient_uniform`` and ``quotient_sum`` too)
+besides B5 and the Poseidon2 kernels.  The kernels
 line gives Q1's ``launches`` from the served 100-tx ``tpu_stark`` request,
 and each kernel's launches per transcript seal, per
 served ``tpu_shard`` request and per mesh run (phase parallel, summed over
@@ -296,15 +302,19 @@ SOURCES = {
     "sha256_compress": ("raiko_tpu_torch/csrc/sha256.cu", "raiko_tpu/ops/sha256.py:54"),
     # the XLA quotient program the reference jits per AIR (or its host
     # numpy for eager_quotient AIRs)
+    "quotient_uniform": ("raiko_tpu_torch/csrc/babybear_quotient.cu", "raiko_tpu/stark/prover.py:546"),
     "quotient": ("raiko_tpu_torch/csrc/babybear_quotient.cu", "raiko_tpu/stark/prover.py:546"),
     "quotient_sum": ("raiko_tpu_torch/csrc/babybear_quotient.cu", "raiko_tpu/stark/prover.py:546"),
 }
 SERVED = ("ec_add", "ec_weighted_fold", "shamir_ladder")
 STARK = ("intt", "ntt_coset", "poseidon2_hash_rows", "poseidon2_merkle")
-# Q1, the quotient's constraint evaluation, and its sum of segments: every
-# proof launches them besides the commitment's kernels
-QUOTIENT = ("quotient", "quotient_sum")
-PROVE = STARK + QUOTIENT
+# Q1, the quotient's constraint evaluation: its uniform values, its walk and
+# its sum of segments.  Every proof launches the walk besides the
+# commitment's kernels; a proof with EVM tables (several segments, uniform
+# values) launches all three
+QUOTIENT = ("quotient_uniform", "quotient", "quotient_sum")
+PROVE = STARK + ("quotient",)
+PROVE_EVM = STARK + QUOTIENT
 OPS = ("ec_double", "ntt_mxu", "keccak_f1600", "sha256_compress", "ntt", "poseidon2_compress")
 # the proofs of phase stark_prove, each against its JAX golden
 PROOF_CASES = ("fib", "transcript", "keccak_chunk")
@@ -322,7 +332,7 @@ BLOCK_SERVED_TXS = 100
 # (NVIDIA H100 80GB HBM3, 700 W), about 4.7 s and 5.2 s a tree
 BLOCK_SERVED_FRAMES = 2
 BLOCK_SERVED_ARGS = {**BLOCK_ARGS, "max_evm_frames": BLOCK_SERVED_FRAMES}
-BLOCK = SERVED + PROVE
+BLOCK = SERVED + PROVE_EVM
 # phase seal: the recursion seal of the transcript payload and the
 # recursively aggregated transcript shards, each against its JAX golden,
 # then a served tpu_shard block (recursion on), a sealed tpu_stark block,
@@ -758,50 +768,95 @@ def quotient_work(tape, m: int) -> dict:
                 logic=2 * (st["arith_distinct"] - st["mul_distinct"] + fold) * m)
 
 
+def uniform_work(tape) -> dict:
+    """The least work of one ``quotient_uniform`` call: the scalars read
+    and written once, each uniform node once (a product: 4 multiplies; a
+    sum: 2 operations)."""
+    from raiko_tpu_torch.stark import quotient_tape as qt
+
+    ops = tape.uniform[:, 0]
+    muls, sums = int((ops == qt.MUL).sum()), int((ops < qt.MUL).sum())
+    return dict(nbytes=4 * tape.n_scalars, mults=BB_MUL * muls, logic=2 * sums)
+
+
+def quotient_layout(tape, m: int) -> dict:
+    """A tape's layout on the card: L, G, its steps (all segments, and the
+    longest), its staged columns, the blocks and the shared bytes a block."""
+    from raiko_tpu_torch.ops import quotient_cuda
+
+    lanes, rows, blocks, smem = quotient_cuda.launch_shape(tape, m)
+    st = tape.stats
+    return {"lanes": lanes, "segments": tape.segments, "steps": st["steps"], "max_steps": st["max_steps"],
+            "columns_staged": st["columns_staged"], "max_columns": st["max_columns"], "max_slots": st["max_slots"],
+            "rows_per_block": rows, "blocks": blocks * tape.segments, "smem_bytes": smem,
+            "uniform_steps": st["uniform_steps"]}
+
+
 def phase_quotient(card: Card) -> dict:
-    """Q1 (``quotient`` and its ``quotient_sum``) on the card against its
-    plain versions, bit for bit: the EVM CPU table of the golden call tree
-    (recorded; against the tape's plain version and the op-by-op
-    evaluation), the keccak chunk (timed), and every other call-tree table,
-    fib and the transcript AIR (one ``kernel_edges`` line)."""
+    """Q1 (``quotient_uniform``, ``quotient`` and ``quotient_sum``) on the
+    card against its plain versions, bit for bit: the EVM CPU table of the
+    golden call tree (recorded; against the tape's plain version and the
+    op-by-op evaluation; its uniform values against ``Tape.scalars``), the
+    keccak chunk (timed), and every other call-tree table, fib and the
+    transcript AIR (one ``kernel_edges`` line, and a ``quotient_layout``
+    line each: L, G, steps, staged columns, shared bytes a block and the
+    launches of one call; the two timed tables' ``kernel`` lines carry
+    the same)."""
     import numpy as np
     import torch
 
+    from raiko_tpu_torch import kernels
     from raiko_tpu_torch.fields import babybear as bb
     from raiko_tpu_torch.ops import quotient_cuda
     from raiko_tpu_torch.testing.goldens import call_tree_tables, golden_air
     from raiko_tpu_torch.testing.quotient import numerator_case
+
+    def one_call(case):
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.reset()
+        got = case.kernel()
+        torch.cuda.synchronize()
+        return got, kernels.LAUNCHES.snapshot()
 
     results = {}
     tables = call_tree_tables(load_golden("evm_call_tree")["inputs"])
     cases = []
     for air, trace, publics in tables[1:] + [golden_air(c, load_golden(c)["inputs"]) for c in ("fib", "transcript")]:
         case = numerator_case(air, trace, publics, "cuda", SEED)
-        cases.append((f"{type(air).__name__} {trace.shape[0]}x{trace.shape[1]}", case.kernel(), case.plain()))
+        label = f"{type(air).__name__} {trace.shape[0]}x{trace.shape[1]}"
+        got, launches = one_call(case)
+        cases.append((label, got, case.plain()))
+        emit("quotient_layout", table=label, **quotient_layout(case.tape(), case.dom.m), launches=launches)
     check_edges("quotient", cases)
     keccak = golden_air("keccak_chunk", load_golden("keccak_chunk")["inputs"])
     for name, (air, trace, publics) in (("evm_cpu", tables[0]), ("keccak_chunk", keccak[:3])):
         case = numerator_case(air, trace, publics, "cuda", SEED)
         tape = case.tape()
-        got = case.kernel()
+        m = case.dom.m
+        got, launches = one_call(case)
         want, plain_ms = once_ms(case.plain)
-        extra = {"table": name, "segments": tape.segments,
-                 "launch_shape": quotient_cuda.launch_shape(tape, case.dom.m), **{k: tape.stats[k] for k in (
-                "constraints", "rows", "instructions", "arith", "arith_one_segment", "arith_distinct",
-                "max_slots", "slots", "columns_read", "uniform", "uniform_levels")}}
+        extra = {"table": name, **quotient_layout(tape, m), "launches_per_call": launches, **{k: tape.stats[k] for k in (
+                "constraints", "rows", "instructions", "nops", "arith", "arith_one_segment", "arith_distinct",
+                "slots", "columns_read", "uniform", "uniform_levels")}}
         if name == "evm_cpu":
             op, op_ms = once_ms(case.op_by_op)
             extra.update(equal_op_by_op=bool(torch.equal(got.long(), op.long())), op_by_op_ms=op_ms)
             if not extra["equal_op_by_op"]:
                 raise AssertionError("Q1 on the EVM CPU table differs from the op-by-op numerator")
-        m = case.dom.m
-        # ms: Q1's launches alone (quotient and quotient_sum, their host
-        # half prepared once); call_ms: the wrapper's whole call, the
-        # scalars' gather and upload included
+        # ms: Q1's launches alone (quotient_uniform, quotient and
+        # quotient_sum, their host half prepared once); call_ms: the
+        # wrapper's whole call, the scalars' gather and upload included
         check_kernel(card, results, "quotient", (tape.rows, air.width, m), got, want, plain_ms,
                      cuda_ms(case.launches(), 10), record=name == "evm_cpu", call_ms=cuda_ms(case.kernel, 10),
                      **quotient_work(tape, m), **extra)
         if name == "evm_cpu":
+            scalars, run = quotient_cuda.prepare_uniform(tape, case.publics, case.chal, case.bus, "cuda")
+            run()
+            want, plain_ms = once_ms(lambda: torch.as_tensor(
+                tape.scalars(case.publics, case.chal, case.bus).view(np.int32), device="cuda"))
+            check_kernel(card, results, "quotient_uniform", (tape.n_scalars,), scalars, want, plain_ms,
+                         graph_ms(run, 20), uniform=tape.stats["uniform"], levels=tape.stats["uniform_levels"],
+                         steps=tape.stats["uniform_steps"], events_ms=cuda_ms(run, 20), **uniform_work(tape))
             partial = torch.as_tensor(np.random.default_rng(SEED).integers(0, bb.P, (tape.segments, 4, m)),
                                       dtype=torch.int32, device="cuda")
             got = quotient_cuda.quotient_sum(partial)
@@ -1375,7 +1430,7 @@ def prove_call_tree_golden() -> None:
              equal_golden=sha == g["sha256"], jax_cpu_prove_s=g["jax_cpu_prove_seconds"])
         if sha != g["sha256"]:
             raise AssertionError("the EVM call tree's payload differs from the JAX golden")
-        missing = [k for k in PROVE if launches.get(k, 0) <= 0]
+        missing = [k for k in PROVE_EVM if launches.get(k, 0) <= 0]
         if missing:
             raise AssertionError(f"evm_call_tree: kernels not launched by the proof: {missing}")
 
@@ -1761,7 +1816,7 @@ def phase_block_prove() -> dict:
     if not all(checks.values()):
         differ = [slot for slot, want in g["statements"].items() if sha(payload.get(slot)) != want]
         raise AssertionError(f"10-tx block: {checks}; statements that differ from the JAX golden: {differ}")
-    missing = [k for k in PROVE if launches.get(k, 0) <= 0]
+    missing = [k for k in PROVE_EVM if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"10-tx block: kernels not launched by the proof: {missing}")
     if not p2_calls.get("raiko_p2_absorb") or not p2_calls.get("raiko_p2_row_path_ok"):

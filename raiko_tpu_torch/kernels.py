@@ -52,8 +52,8 @@ _ENTRIES = {
     "raiko_babybear_ntt_mxu": 6 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
     "raiko_keccak_f1600": 5 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
     "raiko_sha256_compress": 5 * [ctypes.c_void_p] + [ctypes.c_longlong] + 2 * [ctypes.c_int],
-    "raiko_babybear_quotient": 12 * [ctypes.c_void_p] + 3 * [ctypes.c_int] + [ctypes.c_longlong]
-    + 4 * [ctypes.c_int],
+    "raiko_babybear_quotient_uniform": 2 * [ctypes.c_void_p] + 3 * [ctypes.c_int],
+    "raiko_babybear_quotient": 14 * [ctypes.c_void_p] + [ctypes.c_int, ctypes.c_longlong] + 5 * [ctypes.c_int],
     "raiko_babybear_quotient_sum": 2 * [ctypes.c_void_p] + [ctypes.c_int, ctypes.c_longlong],
 }
 

@@ -15,7 +15,7 @@ Port of raiko_tpu/stark/prover.py.  Pipeline:
 
 On a CUDA device every NTT, row hash and Merkle tree is one launch of its
 kernel, and each table's constraint evaluation is kernel Q1 over the AIR's
-recorded tape (``quotient_tape``, ``ops/quotient_cuda.py``; one or two
+recorded tape (``quotient_tape``, ``ops/quotient_cuda.py``; up to three
 launches); on the CPU the wrappers run the kernels' plain versions, the
 tape's through ``quotient_tape.quotient_numerator_plain``.  The rest of the
 quotient, OOD, DEEP and fold arithmetic are torch ops in int64 (the

@@ -65,8 +65,10 @@ class NumeratorCase:
         (``quotient_cuda.prepare``)."""
         return quotient_cuda.prepare(*self._tape_args(tape))
 
-    def plain(self) -> torch.Tensor:
-        return quotient_tape.quotient_numerator_plain(*self._tape_args())
+    def plain(self, tape: quotient_tape.Tape | None = None, reverse_steps: bool = False) -> torch.Tensor:
+        """The tape's plain version over the AIR's cached tape or `tape`,
+        each step's instructions walked in reverse where asked."""
+        return quotient_tape.quotient_numerator_plain(*self._tape_args(tape), reverse_steps=reverse_steps)
 
     def op_by_op(self) -> torch.Tensor:
         cols, sels = self._args()

@@ -5,15 +5,22 @@ the field arithmetic is exact).
 
 * Every AIR class under ``stark/airs/`` records to a tape whose constraint
   rows, counts and kinds are the AIR's and whose operands lie inside its
-  widths and its segments' slots; the instance-parameterised EVM classes
-  are recorded from the fixtures of ``tests/test_torch_evm.py`` (those of
-  ``tests/test_evm_air.py`` and ``tests/test_evm_call.py``), the outer
-  circuit's from the builder of ``tests/test_torch_seal.py``.
+  widths, its segments' slots and column lists; the instance-parameterised
+  EVM classes are recorded from the fixtures of ``tests/test_torch_evm.py``
+  (those of ``tests/test_evm_air.py`` and ``tests/test_evm_call.py``), the
+  outer circuit's from the circuit bundle of ``tests/test_torch_seal.py``.
+* Every class's tape, scheduled at L = 1, 4 and 32 lanes a row, keeps the
+  step schedule's invariants: a step reads only slots that earlier steps
+  wrote, writes no slot twice and none that it reads, keeps within the
+  slot and column caps, and each segment's column list covers what it
+  reads.
 * The tape's plain version equals the op-by-op numerator
   (``testing.quotient.numerator_op_by_op``) on every table of the golden call tree,
   the keccak-chunk AIR at a small n, fib, the transcript AIR, the outer
   circuit's ``CircuitAir`` and ``Poseidon2CallsAir``, each table's trace
-  with seeded challenges and alpha (``testing/quotient.py``).
+  with seeded challenges and alpha (``testing/quotient.py``); walked with
+  each step's instructions in reverse order too, on the call tree's
+  tables, fib and the transcript.
 * The quotient chunks through the tape equal those of the JAX package's
   ``_quotient_stage_for``: for the EVM CPU table (an ``eager_quotient``
   AIR, the reference's host-numpy route) and for fib (its jitted route).
@@ -22,8 +29,9 @@ the field arithmetic is exact).
 * The call tree's proof with every table's numerator from the tape's plain
   version equals ``tests/golden/stark_evm_call_tree.json``.
 
-The ``cuda`` test holds Q1 equal to the plain version on the same tables
-on a card.
+The ``cuda`` tests hold Q1 equal to the plain version on the same tables
+on a card, and on the EVM CPU table and the keccak chunk at forced lanes
+and segments.
 """
 
 import hashlib
@@ -153,10 +161,19 @@ def test_the_classes_are_every_air_under_airs():
     assert found == set(OTHER_CLASSES) | set(EVM_CLASSES)
 
 
-@pytest.mark.parametrize("name", sorted(set(OTHER_CLASSES) | set(EVM_CLASSES)))
+def _graph(name: str) -> qt.Graph:
+    """The class's recorded graph, once per module (the EVM CPU table's
+    takes a second)."""
+    return _cached(("graph", name), lambda: qt.record_graph(_instance(name)))
+
+
+ALL_CLASSES = sorted(set(OTHER_CLASSES) | set(EVM_CLASSES))
+
+
+@pytest.mark.parametrize("name", ALL_CLASSES)
 def test_every_air_class_records(name):
     air = _instance(name)
-    tape = _cached(("tape", name), lambda: qt.record(air, 256))
+    tape = _cached(("tape", name), lambda: qt.tape_of(_graph(name), 256))
     probe = ConstraintBuilder(Probe())
     air.eval(probe)
     assert tape.counts == [c.count for c in probe.constraints]
@@ -164,24 +181,72 @@ def test_every_air_class_records(name):
     assert tape.rows == sum(tape.counts) == air.num_constraints()
     assert tape.row_kinds.tolist() == [qt.KINDS.index(k) for k, c in zip(tape.kinds, tape.counts) for _ in range(c)]
     prog = tape.program.view(np.uint32)
-    # every constraint row is folded once, by its own kind
-    acc = prog[prog[:, 0] >= qt.ACC]
+    # every constraint row is folded once, by its own kind, in its segment
+    acc = prog[(prog[:, 0] >= qt.ACC) & (prog[:, 0] < qt.NOP)]
     assert sorted(acc[:, 1].tolist()) == list(range(tape.rows))
     assert (acc[:, 0] - qt.ACC == tape.row_kinds[acc[:, 1]]).all()
-    # operands lie inside the AIR's widths, its scalars and each segment's slots
-    limits = {qt.LOCAL: air.width, qt.NEXT: air.width, qt.AUX: air.aux_width, qt.AUX_NEXT: air.aux_width,
-              qt.SCALAR: tape.n_scalars}
-    offs = tape.seg_offsets.tolist()
+    assert tape.seg_rows[0] == 0 and tape.seg_rows[-1] == tape.rows and (np.diff(tape.seg_rows) > 0).all()
+    # operands lie inside each segment's slots and column list and the
+    # scalars; the column lists inside the AIR's widths
+    limits = {qt.LOCAL: air.width, qt.NEXT: air.width, qt.AUX: air.aux_width, qt.AUX_NEXT: air.aux_width}
     for g in range(tape.segments):
-        seg = prog[offs[g]:offs[g + 1]]
-        arith = seg[seg[:, 0] < qt.ACC]
-        assert (arith[:, 1] < tape.seg_slots[g]).all()
-        refs = np.concatenate([seg[:, 2], arith[:, 3]])
+        steps, cols = tape.segment(g)
+        seg = steps.reshape(-1, 4)
+        ops = seg[:, 0]
+        folds = seg[(ops >= qt.ACC) & (ops < qt.NOP)]
+        assert ((folds[:, 1] >= tape.seg_rows[g]) & (folds[:, 1] < tape.seg_rows[g + 1])).all()
+        arith = seg[ops < qt.ACC]
+        # a slot is a place of the row's tile after the segment's columns
+        tile = len(cols) + tape.seg_slots[g]
+        assert ((arith[:, 1] >= len(cols)) & (arith[:, 1] < tile)).all()
+        refs = np.concatenate([seg[ops < qt.NOP, 2], arith[:, 3]])
         kinds, idx = refs >> qt.KIND_SHIFT, refs & qt.INDEX_MASK
-        assert (idx[kinds == qt.SLOT] < tape.seg_slots[g]).all()
-        for kind, limit in limits.items():
+        assert set(np.unique(kinds).tolist()) <= {qt.SLOT, qt.COLUMN, qt.SCALAR}
+        assert (idx[kinds == qt.SLOT] >= len(cols)).all()
+        for kind, limit in ((qt.SLOT, tile), (qt.COLUMN, len(cols)), (qt.SCALAR, tape.n_scalars)):
             assert (idx[kinds == kind] < limit).all(), (g, kind)
-        assert set(np.unique(kinds).tolist()) <= set(range(qt.SCALAR + 1))
+        for kind, limit in limits.items():
+            assert ((cols & qt.INDEX_MASK)[cols >> qt.KIND_SHIFT == kind] < limit).all(), (g, kind)
+        assert set(np.unique(cols >> qt.KIND_SHIFT).tolist()) <= set(range(qt.LOCAL, qt.FIXED + 1))
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 32])
+@pytest.mark.parametrize("name", ALL_CLASSES)
+def test_scheduled_tape_invariants(name, lanes):
+    """The step schedule at L lanes (more where one constraint row's
+    columns fit no warp's rows at L): each step's instructions are
+    independent, so the kernel's lanes may run them in any order."""
+    tape = qt.tape_of(_graph(name), 256, lanes=lanes)
+    assert tape.lanes >= lanes and tape.fits()
+    lanes = tape.lanes
+    assert (tape.seg_offsets % lanes == 0).all()
+    assert tape.stats["max_slots"] <= qt.MAX_SEGMENT_SLOTS and tape.stats["max_columns"] <= qt.MAX_SEGMENT_COLUMNS
+    for g in range(tape.segments):
+        steps, cols = tape.segment(g)
+        n_steps = len(steps)
+        step = np.repeat(np.arange(n_steps), lanes)
+        seg = steps.reshape(-1, 4)
+        ops = seg[:, 0]
+        live = ops < qt.NOP
+        writes = ops < qt.ACC
+        # reads: (step, slot) of every slot operand
+        reads = [(step[live], seg[live, 2]), (step[writes], seg[writes, 3])]
+        r_step = np.concatenate([t[(w >> qt.KIND_SHIFT) == qt.SLOT] for t, w in reads])
+        r_slot = np.concatenate([(w & qt.INDEX_MASK)[(w >> qt.KIND_SHIFT) == qt.SLOT] for _, w in reads])
+        w_step, w_slot = step[writes], seg[writes, 1].astype(np.int64)
+        slots = len(cols) + int(tape.seg_slots[g])  # the places of a row's tile
+        # every step reads only slots that an earlier step wrote
+        first = np.full(slots, n_steps)
+        np.minimum.at(first, w_slot, w_step)
+        assert (first[r_slot] < r_step).all(), g
+        # no slot is written twice in a step, nor read and written in one
+        w_key = w_step * slots + w_slot
+        assert len(np.unique(w_key)) == len(w_key), g
+        assert not np.intersect1d(w_key, r_step * slots + r_slot).size, g
+        # the column list covers every column operand, and each entry is read
+        col_refs = np.concatenate([w[(w >> qt.KIND_SHIFT) == qt.COLUMN] & qt.INDEX_MASK for _, w in reads])
+        assert np.array_equal(np.unique(col_refs), np.arange(len(cols))), g
+        assert len(np.unique(cols)) == len(cols)
 
 
 def test_recorder_refuses_what_it_cannot_take():
@@ -227,14 +292,31 @@ NUMERATOR_TABLES = [f"call_tree_{i}" for i in range(17)] + [
     "keccak_chunk_small", "fib", "transcript", "circuit_air", "poseidon2_calls"]
 
 
+def _case_and_op_by_op(table: str):
+    """The table's CPU case and its op-by-op numerator, once per module."""
+
+    def build():
+        air, trace, publics = _numerator_tables()[table]
+        case = numerator_case(air, trace, publics, "cpu", seed=7)
+        return case, case.op_by_op()
+
+    return _cached(("op_by_op", table), build)
+
+
 @pytest.mark.parametrize("table", NUMERATOR_TABLES)
 def test_plain_equals_op_by_op(table):
-    air, trace, publics = _numerator_tables()[table]
-    case = numerator_case(air, trace, publics, "cpu", seed=7)
+    case, want = _case_and_op_by_op(table)
     got = case.plain()
-    want = case.op_by_op()
     assert got.shape == (case.dom.m, 4) and got.dtype == torch.int32
     assert torch.equal(got.long(), want.long())
+
+
+@pytest.mark.parametrize("table", [f"call_tree_{i}" for i in range(17)] + ["fib", "transcript"])
+def test_plain_reversed_steps_equals_op_by_op(table):
+    """Each step's instructions walked in reverse order give the same
+    numerator: a step reads nothing that it writes or overwrites."""
+    case, want = _case_and_op_by_op(table)
+    assert torch.equal(case.plain(reverse_steps=True).long(), want.long())
 
 
 def test_call_tree_has_seventeen_tables():
@@ -325,7 +407,8 @@ def test_shared_stage_key_records_equal_tapes(name):
     assert a is not b and (not np.array_equal(ta, tb) or list(pa) != list(pb))
     m = 4 * ta.shape[0]
     x, y = qt.record(a, m), qt.record(b, m)
-    for field in ("program", "seg_offsets", "seg_slots", "consts", "row_kinds", "uniform", "uniform_levels"):
+    for field in ("program", "seg_offsets", "seg_slots", "seg_cols", "seg_col_offsets", "seg_rows", "consts",
+                  "row_kinds", "uniform"):
         assert np.array_equal(getattr(x, field), getattr(y, field)), field
     assert (x.inputs, x.counts, x.kinds, x.widths) == (y.inputs, y.counts, y.kinds, y.widths)
 
@@ -435,20 +518,47 @@ def test_call_tree_proof_through_tape_equals_golden(monkeypatch):
 # --- Q1 on a card
 
 
+def _q1_launches(tape: qt.Tape) -> dict:
+    """The launches of one Q1 call on `tape`."""
+    want = {"quotient": 1, "quotient_sum": int(tape.segments > 1), "quotient_uniform": int(len(tape.uniform) > 0)}
+    return {k: v for k, v in want.items() if v}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("table", NUMERATOR_TABLES)
 def test_cuda_q1_equals_plain(cuda_device, table):
     from raiko_tpu_torch import kernels
+    from raiko_tpu_torch.ops import quotient_cuda
 
     air, trace, publics = _numerator_tables()[table]
     case = numerator_case(air, trace, publics, cuda_device, seed=7)
+    tape = case.tape()
     kernels.LAUNCHES.reset()
     got = case.kernel()
     torch.cuda.synchronize()
     launches = kernels.LAUNCHES.snapshot()
-    assert launches.get("quotient") == 1
-    assert launches.get("quotient_sum", 0) == (case.tape().segments > 1)
+    assert launches == _q1_launches(tape)
     assert torch.equal(got.cpu(), case.plain().cpu())
+    scalars = quotient_cuda.uniform_scalars(tape, case.publics, case.chal, case.bus, cuda_device)
+    assert torch.equal(scalars.cpu(), quotient_cuda.uniform_scalars(tape, case.publics, case.chal, case.bus, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [4, 16])
+@pytest.mark.parametrize("lanes", [1, 4, 32])
+@pytest.mark.parametrize("table", ["evm_cpu", "keccak_chunk"])
+def test_cuda_q1_forced_layouts(cuda_device, table, lanes, segments):
+    """Q1 on the EVM CPU table and the keccak chunk (1,024 x 4,160) with
+    the lanes and the segments forced: every layout gives the plain
+    version's numerator."""
+    if table == "evm_cpu":
+        air, trace, publics = _numerator_tables()["call_tree_0"]
+    else:
+        air, trace, publics = golden_air("keccak_chunk", _golden("keccak_chunk")["inputs"])[:3]
+    case = numerator_case(air, trace, publics, cuda_device, seed=7)
+    tape = qt.record(air, case.dom.m, segments=segments, lanes=lanes)
+    assert tape.lanes == lanes and tape.fits()
+    assert torch.equal(case.kernel(tape).cpu(), case.plain(tape).cpu())
 
 
 # --- the launch's shape and the recorder's limits
@@ -460,26 +570,66 @@ def test_launch_shape_fits_shared_memory():
     air, trace, publics = _numerator_tables()["call_tree_0"]
     m = 4 * trace.shape[0]
     tape = qt.tape_for(air, trace.shape[0].bit_length() - 1, m, False)
-    threads, blocks, smem = quotient_cuda.launch_shape(tape, m)
-    assert tape.segments == qt.segments_for(m, tape.rows) == qt.MAX_SEGMENTS
-    assert int(tape.seg_slots.max()) <= 256 and (threads, blocks) == (128, 1)
-    # one thread's walk through the longest segment bounds the launch: each of
-    # the eight LogUp transitions of some 17,000 nodes has a segment of its own
-    longest = int(np.diff(tape.seg_offsets).max())
-    assert longest < 2 * 17000
-    assert smem == 16 * quotient_cuda.CHUNK + 4 * (-(-tape.n_scalars // 4) * 4) + 4 * 128 * int(tape.seg_slots.max())
-    assert smem <= quotient_cuda.SMEM_BYTES
-    # a tape of MAX_SEGMENT_SLOTS slots still fits, at 32 threads a block
-    wide = qt.Tape(**{**tape.__dict__, "seg_slots": np.full(tape.segments, qt.MAX_SEGMENT_SLOTS, np.int32),
-                      "device_arrays": {}})
-    assert quotient_cuda.launch_shape(wide, 1000)[:2] == (32, 32)
+    # 128 LDE rows: a warp a row, 8 rows a block
+    assert m == 128 and tape.lanes == qt.lanes_for(m) == 32
+    lanes, rows, blocks, smem = quotient_cuda.launch_shape(tape, m)
+    assert (lanes, rows, blocks) == (32, quotient_cuda.BLOCK_LANES // 32, m * 32 // quotient_cuda.BLOCK_LANES)
+    assert smem == tape.smem_bytes(rows) <= qt.SMEM_BYTES
+    # a row's lanes walk each of the eight LogUp transitions (some 17,000
+    # instructions each) in a segment of its own, in under 600 steps
+    steps = np.diff(tape.seg_offsets) // tape.lanes
+    assert int(steps.max()) < 600 and tape.stats["max_steps"] == int(steps.max())
+    assert tape.stats["instructions"] > 16937
+    # a layout of more slots fits at fewer rows a block
+    wide = qt.Tape(**{**tape.__dict__, "seg_slots": np.full(tape.segments, 6000, np.int32), "device_arrays": {}})
+    assert 1 <= quotient_cuda.launch_shape(wide, m)[1] < rows
+    # one that fits nowhere raises with the AIR's name
+    huge = qt.Tape(**{**tape.__dict__, "seg_slots": np.full(tape.segments, 60000, np.int32), "device_arrays": {}})
+    with pytest.raises(ValueError, match="EvmCpuAir"):
+        quotient_cuda.launch_shape(huge, m)
 
 
 def test_record_caps_segment_slots(monkeypatch):
-    """One segment of the EVM CPU table holds 939 slots live at once; under
-    a cap of 200 the recorder doubles G until every segment fits."""
-    air = _instance("EvmCpuAir")
-    monkeypatch.setattr(qt, "MAX_SEGMENT_SLOTS", 200)
-    tape = qt.record(air, 1 << 22)
-    assert qt.segments_for(1 << 22, tape.rows) == 1
-    assert tape.segments > 1 and int(tape.seg_slots.max()) <= 200
+    """Under a cap of 500 slots and 1,200 columns the recorder cuts the
+    EVM CPU table into more segments until every one fits (a LogUp row
+    alone holds some 360 slots and reads some 1,070 columns at L = 32)."""
+    graph = _graph("EvmCpuAir")
+    free = qt.tape_of(graph, 128, segments=16)
+    assert free.stats["max_slots"] > 500 and free.stats["max_columns"] > 1200
+    monkeypatch.setattr(qt, "MAX_SEGMENT_SLOTS", 500)
+    monkeypatch.setattr(qt, "MAX_SEGMENT_COLUMNS", 1200)
+    tape = qt.tape_of(graph, 128, segments=16)
+    assert tape.fits() and tape.segments > free.segments
+    assert int(tape.seg_slots.max()) <= 500 and tape.stats["max_columns"] <= 1200
+
+
+def test_record_widens_where_segments_recompute():
+    """At one lane a row the column budget would cut Poseidon2CallsAir
+    (16,384 LDE rows) into segments that recompute dozens of times what
+    one segment computes; unless L is asked for, the recorder takes more
+    lanes until they recompute at most MAX_RECOMPUTE times."""
+    graph = _graph("Poseidon2CallsAir")
+    whole = lambda t: t.stats["arith_one_segment"] + t.rows  # noqa: E731
+    narrow = qt.tape_of(graph, 1 << 14, lanes=1)
+    assert narrow.lanes == 1 and narrow.stats["instructions"] > 10 * whole(narrow)
+    tape = qt.tape_of(graph, 1 << 14)
+    assert qt.lanes_for(1 << 14) == 1 < tape.lanes
+    assert tape.stats["instructions"] <= qt.MAX_RECOMPUTE * whole(tape)
+
+
+def test_record_widens_a_row_that_fits_no_warp(monkeypatch):
+    """A constraint row whose columns do not fit one warp's rows (32 at one
+    lane) in shared memory takes more lanes a row, so fewer rows a warp."""
+
+    class Wide(Air):
+        width = 200
+
+        def eval(self, b):
+            b.all_rows(b.block_rowsum(b.local_block(range(200))))
+
+    graph = qt.record_graph(Wide())
+    tape = qt.tape_of(graph, 1 << 16)
+    assert tape.lanes == qt.lanes_for(1 << 16) == 1 and tape.stats["max_columns"] == 200
+    monkeypatch.setattr(qt, "SMEM_BYTES", tape.smem_bytes(4))
+    narrow = qt.tape_of(graph, 1 << 16)
+    assert narrow.lanes == 8 and narrow.fits()

@@ -18,8 +18,9 @@ launches; the device time launched outside every range; and the whole
 proof's wall, its device busy time (the union of the device events) and
 busy share.  The port's own kernels, which ctypes launches, count like
 torch's: the trace sees their launch calls and their device events.
-The quotient stage evaluates each table's constraints in kernel Q1 (two
-launches a table, beside its finish's NTTs and commitment).  Needs one
+The quotient stage evaluates each table's constraints in kernel Q1 (up
+to three launches a table: its uniform values, its walk, its segments'
+sum; beside its finish's NTTs and commitment).  Needs one
 CUDA card; JAX and the JAX package are refused as in chip_smoke.py.
 """
 
