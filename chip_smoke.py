@@ -52,7 +52,11 @@ prints one JSON line; any failure raises and exits non-zero.
    trace with seeded challenges and alpha (``testing/quotient.py``), one
    ``quotient_layout`` line per table (L, G, steps, staged columns, shared
    bytes a block, launches of one call); quotient_uniform on the EVM
-   table against ``Tape.scalars``; quotient_sum on its G x 4 x m;
+   table against ``Tape.scalars``; quotient_sum on its G x 4 x m; before
+   them, the port's constraint checker (``stark/debug.py``, host numpy)
+   on the same 19 tables, each of which must check clean, and on the EVM
+   CPU table with one ADD row's result bit flipped, which it must catch
+   (one ``constraints`` line: tables, violations, seconds);
 4. ops: the ops entry points that reach B3, B6, the Keccak and SHA-256
    kernels, B5 without its prologue and poseidon2_compress, counts reset
    just before and all six positive after: B3
@@ -792,8 +796,45 @@ def quotient_layout(tape, m: int) -> dict:
             "uniform_steps": st["uniform_steps"]}
 
 
+def check_constraints_on(tables) -> None:
+    """The port's constraint checker (``stark/debug.py``, host numpy, no
+    kernel) on phase quotient's tables, with seeded challenges: each must
+    check clean, and the first (the EVM CPU table) with one ADD row's
+    result bit flipped must be caught.  One ``constraints`` line."""
+    import numpy as np
+
+    from raiko_tpu_torch.fields import babybear as bb
+    from raiko_tpu_torch.stark.airs import evm_air as ea
+    from raiko_tpu_torch.stark.debug import check_constraints
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    chal = [tuple(int(v) for v in rng.integers(1, bb.P, 4)) for _ in range(ea.NUM_CHALLENGES)]
+    failing = {}
+    for air, trace, publics in tables:
+        found = check_constraints(air, trace, publics, chal)
+        if found:
+            failing[f"{type(air).__name__} {trace.shape[0]}x{trace.shape[1]}"] = found
+    if failing:
+        raise AssertionError(f"constraints fail on satisfied tables: {failing}")
+    clean_s = time.perf_counter() - t0
+    cpu, trace, publics = tables[0]
+    tampered = trace.copy()
+    row = int(np.where(tampered[:, ea.FLAG0 + ea.FLAG_IDX["add"]] == 1)[0][0])
+    tampered[row, ea.C0] ^= 1
+    caught = check_constraints(cpu, tampered, publics, chal)
+    if not caught:
+        raise AssertionError("the constraint checker misses a flipped ADD result bit in the EVM CPU table")
+    emit("constraints", tables=[f"{type(a).__name__} {t.shape[0]}x{t.shape[1]}" for a, t, _ in tables],
+         clean=len(tables), clean_seconds=clean_s,
+         tampered={"table": f"{type(cpu).__name__} {trace.shape[0]}x{trace.shape[1]}", "row": row,
+                   "column": ea.C0, "violations": caught},
+         seconds=time.perf_counter() - t0)
+
+
 def phase_quotient(card: Card) -> dict:
-    """Q1 (``quotient_uniform``, ``quotient`` and ``quotient_sum``) on the
+    """The constraint checker on the tables below (``check_constraints_on``),
+    then Q1 (``quotient_uniform``, ``quotient`` and ``quotient_sum``) on the
     card against its plain versions, bit for bit: the EVM CPU table of the
     golden call tree (recorded; against the tape's plain version and the
     op-by-op evaluation; its uniform values against ``Tape.scalars``), the
@@ -820,8 +861,10 @@ def phase_quotient(card: Card) -> dict:
 
     results = {}
     tables = call_tree_tables(load_golden("evm_call_tree")["inputs"])
+    small = [golden_air(c, load_golden(c)["inputs"]) for c in ("fib", "transcript")]
+    check_constraints_on(tables + small)
     cases = []
-    for air, trace, publics in tables[1:] + [golden_air(c, load_golden(c)["inputs"]) for c in ("fib", "transcript")]:
+    for air, trace, publics in tables[1:] + small:
         case = numerator_case(air, trace, publics, "cuda", SEED)
         label = f"{type(air).__name__} {trace.shape[0]}x{trace.shape[1]}"
         got, launches = one_call(case)
