@@ -87,7 +87,14 @@ prints one JSON line; any failure raises and exits non-zero.
    cuda``) answers a v2 ``native`` proof request for one 100-tx taiko_a7
    blob block from the port's chain simulator (three before the block
    proof of phase 10 took the run's time); the launch counts are reset
-   just before the request and B1, B2 and B4 must all be positive after;
+   just before the request and B1, B2 and B4 must all be positive after.
+   Then the host Keccak-256 that the request's tries, senders and
+   instance hash ran: the C library (``utils/native.py``, built from
+   ``csrc/keccak256_host.cpp``) must load (no fallback), equal
+   ``keccak_py`` on 300 seeded messages of 0-600 bytes and the padding
+   edges, and have been called by the served request (its ``CALLS`` set
+   to 0 just before it); one ``host_keccak`` line: which Keccak ran,
+   microseconds per hash of each on this machine's host, calls;
 7. stark: the STARK trace commitment of the keccak sponge chunk (1,024 rows
    x 4,160 columns, blowup 4) through ``commit_step`` on the card, counts
    reset just before and after them exactly one launch each of B5's intt,
@@ -1575,11 +1582,13 @@ def _post(url: str, body: dict) -> dict:
 
 def phase_serve(device: str, n_blocks: int, n_txs: int):
     """Serve v2 ``native`` requests for blocks 1..n_blocks; returns the
-    seconds per request, the kernels' launches during the requests and each
-    block's served proof (``input``, ``kzg_proof``)."""
+    seconds per request, the kernels' launches during the requests, each
+    block's served proof (``input``, ``kzg_proof``) and the calls into the
+    host Keccak library during the requests."""
     from raiko_tpu_torch import kernels
     from raiko_tpu_torch.host.cli import BackgroundServer
     from raiko_tpu_torch.testing.workload import build_chain
+    from raiko_tpu_torch.utils import native
 
     port = _free_port()
     argv = ["--device", device, "--address", "127.0.0.1", "--port", str(port), "--log-level", "warning"]
@@ -1590,6 +1599,7 @@ def phase_serve(device: str, n_blocks: int, n_txs: int):
              device=str(srv.device))
         base = f"http://127.0.0.1:{port}"
         kernels.LAUNCHES.reset()
+        native.CALLS.reset()
         per_request, served = [], []
         for blk in range(1, n_blocks + 1):
             body = {"block_number": blk, "network": "taiko_a7", "proof_type": "native"}
@@ -1607,7 +1617,8 @@ def phase_serve(device: str, n_blocks: int, n_txs: int):
             emit("request", block=blk, seconds=per_request[-1], input=served[-1]["input"],
                  kzg_proof=served[-1]["kzg_proof"])
         launches = kernels.LAUNCHES.snapshot()
-    return per_request, launches, served
+        keccak_calls = native.CALLS.snapshot()
+    return per_request, launches, served, keccak_calls
 
 
 def check_requests(served: list[dict]) -> None:
@@ -1794,6 +1805,42 @@ def phase_host_poseidon2() -> dict:
     emit("host_poseidon2", **row)
     if not equal:
         raise AssertionError("the C host Poseidon2 differs from host_permute")
+    return row
+
+
+def phase_host_keccak(served_calls: dict) -> dict:
+    """The host Keccak-256 that tries, senders and the instance hash run:
+    the C library (``utils/native.py``), which must load (no fallback),
+    against ``keccak_py`` on 300 seeded messages of 0-600 bytes and the
+    padding edges, with both times per hash on this machine's host (the C
+    library's over 3,000 messages); `served_calls`, its calls during the
+    served ``native`` request, must be positive."""
+    import numpy as np
+
+    from raiko_tpu_torch.utils import keccak_py, native
+
+    implementation = native.implementation()
+    rng = np.random.default_rng(SEED + 7)
+    msgs = [rng.bytes(n) for n in (0, 1, 135, 136, 137, 271, 272)]
+    msgs += [rng.bytes(int(n)) for n in rng.integers(0, 601, 3000 - len(msgs))]
+    t0 = time.perf_counter()
+    want = [keccak_py.keccak256(m) for m in msgs[:300]]
+    python_us = (time.perf_counter() - t0) / 300 * 1e6
+    t0 = time.perf_counter()
+    got = [native.keccak256(m) for m in msgs]
+    c_us = (time.perf_counter() - t0) / len(msgs) * 1e6
+    equal = got[:300] == want and native.keccak256_batch(msgs[:300]) == want
+    calls = sum(served_calls.values())
+    row = {"implementation": implementation, "equal_python": equal, "messages_checked": 300,
+           "c_us_per_hash": c_us, "python_us_per_hash": python_us, "python_over_c": python_us / c_us,
+           "served_calls": calls, "served_calls_by_entry": served_calls}
+    emit("host_keccak", **row)
+    if not implementation.startswith(native.NAME + " ("):
+        raise AssertionError(f"the host Keccak is not the C library: {implementation}")
+    if not equal:
+        raise AssertionError("the C host Keccak-256 differs from keccak_py")
+    if calls <= 0:
+        raise AssertionError("the served native request made no call into the host Keccak library")
     return row
 
 
@@ -2445,8 +2492,9 @@ def main(argv=None) -> int:
     kres.update(ops_results)
     check_mxu_sass(pending_sass)
     phase_kzg()
-    per_request, launches, served = phase_serve("cuda", n_blocks=1, n_txs=100)
+    per_request, launches, served, keccak_calls = phase_serve("cuda", n_blocks=1, n_txs=100)
     emit("serve", requests=len(per_request), seconds_per_request=per_request, launches=launches)
+    phase_host_keccak(keccak_calls)
     missing = [k for k in SERVED if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the served path: {missing}")

@@ -9,8 +9,8 @@ raise if they would need to traverse a Digest; node references are the
 keccak-256 of the RLP encoding, inlined verbatim when shorter than 32
 bytes (ref :417-430).
 
-Hashing batches through the native C++ keccak (raiko_tpu.utils) with the
-TPU batch kernel available for bulk state-root recomputation; node
+Hashing goes through the host C Keccak (``utils/native.py``), with the
+card's batch kernel available for bulk state-root recomputation; node
 references are cached and invalidated on mutation (ref's cached_reference).
 """
 

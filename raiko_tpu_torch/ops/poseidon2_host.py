@@ -7,9 +7,9 @@ the host.  ``ops/poseidon2.py``'s ``host_permute``, ``host_hash_row`` and
 the same words bit for bit, from a small C library.
 
 g++ builds the library at first use into ``_build/host/<hash>/`` beside
-the package (listed in .gitignore), keyed by the source's content, and
-ctypes loads it; the round constants are handed to it once from
-``poseidon2.host_constants``.  A build or load failure raises: nothing
+the package (``host_build.build``, listed in .gitignore), keyed by the
+source's content, and ctypes loads it; the round constants are handed to
+it once from ``poseidon2.host_constants``.  A build or load failure raises: nothing
 falls back to the Python versions.  ``CALLS`` counts the calls into the
 library, so a run can show that its transcript went through it.
 
@@ -20,21 +20,18 @@ or numpy arrays); inputs are reduced mod p first.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
+from .. import host_build
 from ..fields import babybear as bb
-from ..kernels import LaunchCounter
+from ..kernels import CSRC, LaunchCounter
 from . import poseidon2 as p2
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "poseidon2_host.cpp")
-BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build", "host")
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+SOURCE = os.path.join(CSRC, "poseidon2_host.cpp")
+BUILD_ROOT = host_build.BUILD_ROOT
 NAME = "c"  # what ``implementation()`` reports once the library is loaded
 
 CALLS = LaunchCounter()
@@ -57,35 +54,11 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _build() -> str:
-    """Compile the source once per content hash; return the library's path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    out_dir = os.path.join(BUILD_ROOT, digest)
-    path = os.path.join(out_dir, "libposeidon2_host.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(out_dir, exist_ok=True)
-    # build beside the target and rename, so that processes building at
-    # once never load a half-written file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(_build())
+            lib = ctypes.CDLL(host_build.build(SOURCE, BUILD_ROOT))
             for name, (argtypes, restype) in _ENTRIES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -1,12 +1,13 @@
-"""Keccak-256 (legacy 0x01 padding) — pure-Python host fallback.
+"""Keccak-256 (legacy 0x01 padding) in pure Python: the plain host version.
 
 Role in the framework: Ethereum hashes everything with Keccak-256 — MPT node
 references, block/tx hashes, the on-chain protocol-instance hash (reference:
 lib/src/primitives/keccak.rs:34-38, lib/src/primitives/mpt.rs:117-121).  The
-TPU hot path batches thousands of node hashes through the Pallas kernel in
-``raiko_tpu.ops.keccak``; this module is the scalar host-side implementation
-used for small one-off hashes and as the golden reference in tests, with an
-optional C++ fast path (native/keccak256.cpp) via ctypes.
+card batches thousands of node hashes through the CUDA kernel in
+``ops/keccak.py`` and the host hashes through the C library of
+``utils/native.py`` (csrc/keccak256_host.cpp); this module is the plain
+Python version, the oracle of the tests, and what a few AIR trace builders
+call directly.
 
 All Keccak constants (round constants, rho rotation offsets) are *derived*
 from the FIPS-202 specification at import time rather than transcribed, so a

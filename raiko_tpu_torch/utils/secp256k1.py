@@ -2,9 +2,9 @@
 
 Role: transaction sender recovery during block re-execution (reference
 lib/src/builder.rs:108-110, patched secp256k1 crate) and the TEE-style
-prover's signing step (provers/sgx/guest/src/signature.rs:10-60).  A C++
-batch path (native/secp256k1.cpp) accelerates bulk recovery; this module is
-the exact reference and the fallback.
+prover's signing step (provers/sgx/guest/src/signature.rs:10-60).  Bulk
+recovery on the card goes through ``ops/secp.py`` (kernel B4); this module
+is the exact reference and the host path.
 """
 
 from __future__ import annotations

@@ -2,9 +2,13 @@
 
 Every module of ``raiko_tpu_torch`` and ``chip_smoke.py`` is read as a
 syntax tree: no import of ``raiko_tpu`` (absolute, or relative out of the
-package) and none of ``jax``.  A subprocess that refuses both imports every
+package) and none of ``jax``; no port module names a path that leaves the
+package (``".."``, ``os.pardir``, more ``os.path.dirname`` or ``.parent``
+steps up from ``__file__`` than the module lies deep in it), and neither
+they nor ``chip_smoke.py`` name the JAX package's ``native/`` library.  A subprocess that refuses both imports every
 port module, serves one v2 ``native`` request for a 16-tx taiko_a7 blob
-block through the port's server on the CPU, proves the same block again
+block through the port's server on the CPU (whose hashing must go through
+the port's own host Keccak library, ``utils/native.py``), proves the same block again
 on the port's host path (``device=None``: host MSM, per-tx recovery), which
 shares no code with the kernels, runs the flagship commitment step,
 whose root must equal the JAX step's, proves and verifies a fib AIR,
@@ -62,6 +66,98 @@ def test_port_module_imports_no_reference(path):
         assert "" not in roots  # no relative import climbs out of the package
 
 
+def _docstrings(tree: ast.AST) -> set[int]:
+    return {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant) and isinstance(node.body[0].value.value, str)}
+
+
+def _steps_up(node: ast.AST) -> int | None:
+    """How many directories up from ``__file__`` the path expression
+    `node` climbs (``os.path.dirname`` calls, ``.parent`` and ``.parents[k]``
+    steps; ``abspath``, ``realpath`` and ``Path`` keep the level), or None
+    where it is not built from ``__file__``."""
+    if isinstance(node, ast.Name):
+        return 0 if node.id == "__file__" else None
+    if isinstance(node, ast.Call) and len(node.args) == 1:
+        name = node.func.attr if isinstance(node.func, ast.Attribute) else getattr(node.func, "id", "")
+        inner = _steps_up(node.args[0])
+        if inner is None:
+            return None
+        if name == "dirname":
+            return inner + 1
+        if name in ("abspath", "realpath", "normpath", "Path"):
+            return inner
+        return None
+    if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.func.attr == "resolve":
+        return _steps_up(node.func.value)
+    if isinstance(node, ast.Attribute) and node.attr == "parent":
+        inner = _steps_up(node.value)
+        return None if inner is None else inner + 1
+    if (isinstance(node, ast.Subscript) and isinstance(node.value, ast.Attribute)
+            and node.value.attr == "parents" and isinstance(node.slice, ast.Constant)):
+        inner = _steps_up(node.value.value)
+        return None if inner is None else inner + node.slice.value + 1
+    return None
+
+
+def _paths_out_of_the_package(path: str) -> list[str]:
+    """Where the module at `path` names a path that leaves the port's
+    package, or the JAX package's ``native/`` library."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    in_port = path.startswith("raiko_tpu_torch" + os.sep)
+    depth = len(os.path.dirname(path).split(os.sep))  # raiko_tpu_torch/ops/x.py: 2 steps up reach the package
+    docs = _docstrings(tree)
+    found = []
+    for node in ast.walk(tree):
+        where = f"{path}:{getattr(node, 'lineno', '?')}"
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            text = node.value.replace("\\", "/")
+            if "native/" in text or "libraiko_native" in text:
+                found.append(f"{where}: names native/ ({node.value!r})")
+            if in_port and (text == ".." or "../" in text or text.endswith("/..")):
+                found.append(f"{where}: climbs with {node.value!r}")
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "join":
+            if any(isinstance(a, ast.Constant) and a.value == "native" for a in node.args):
+                found.append(f"{where}: joins 'native' into a path")
+        if in_port:
+            if isinstance(node, ast.Attribute) and node.attr == "pardir":
+                found.append(f"{where}: climbs with os.pardir")
+            steps = _steps_up(node)
+            if steps is not None and steps > depth:
+                found.append(f"{where}: climbs {steps} directories up from __file__, out of the package")
+    return found
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_port_module_names_no_path_out_of_the_package(path):
+    assert _paths_out_of_the_package(path) == []
+
+
+def test_path_walk_sees_what_leaves_the_package(tmp_path, monkeypatch):
+    """The walk above flags each way out that it names, and passes the
+    package's own ``csrc/`` and ``_build/``."""
+    pkg = tmp_path / "raiko_tpu_torch" / "utils"
+    pkg.mkdir(parents=True)
+    (pkg / "ok.py").write_text(
+        "import os\n"
+        "CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')\n")
+    (pkg / "bad.py").write_text(
+        "import os, pathlib\n"
+        "A = os.path.join(os.path.dirname(__file__), '..', '..', 'native')\n"
+        "B = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))\n"
+        "C = pathlib.Path(__file__).resolve().parents[2]\n"
+        "D = os.path.join(os.path.dirname(__file__), os.pardir)\n"
+        "E = 'native/libraiko_native.so'\n")
+    monkeypatch.setattr(sys.modules[__name__], "REPO", str(tmp_path))
+    assert _paths_out_of_the_package(os.path.join("raiko_tpu_torch", "utils", "ok.py")) == []
+    found = _paths_out_of_the_package(os.path.join("raiko_tpu_torch", "utils", "bad.py"))
+    lines = sorted({int(f.split(":")[1]) for f in found})
+    assert lines == [2, 3, 4, 5, 6], found
+
+
 def test_port_tree_is_whole():
     paths = _port_sources()
     assert len(paths) > 60
@@ -116,11 +212,14 @@ with socket.socket() as s:
     port = s.getsockname()[1]
 body = {"block_number": 1, "network": "taiko_a7", "proof_type": "native"}
 argv = ["--device", "cpu", "--address", "127.0.0.1", "--port", str(port), "--log-level", "warning"]
+from raiko_tpu_torch.utils import native
+native.CALLS.reset()
 with BackgroundServer(argv):
     r = post(f"http://127.0.0.1:{port}/v2/proof", body)
     while r["status"] == "ok" and r["data"]["status"] in ("registered", "work_in_progress"):
         time.sleep(0.25)
         r = post(f"http://127.0.0.1:{port}/v2/proof", body)
+keccak_calls_served = sum(native.CALLS.snapshot().values())
 req = ProofRequest(block_number=1, network="taiko_a7", proof_type=ProofType.NATIVE)
 raiko = Raiko(SupportedChainSpecs(), req, None)
 gi = raiko.generate_input()
@@ -144,6 +243,8 @@ rec_outer = recursion.prove_recursion([[rec_table]], [[rec_inner]], "cpu")
 rec_json = json.dumps([stark_serde.proof_to_dict(p) for p in rec_outer], sort_keys=True)
 print(json.dumps({
     "status": r["data"]["status"],
+    "keccak_implementation": native.implementation(),
+    "keccak_calls_served": keccak_calls_served,
     "input_equal": served.get("input") == host.input_hash == "0x" + out.hash.hex(),
     "kzg_equal": host.kzg_proof is not None and served.get("kzg_proof") == host.kzg_proof,
     "txs": len(gi.transactions),
@@ -168,6 +269,10 @@ def test_port_serves_and_commits_with_reference_refused():
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res["status"] == "success"
+    impl = res["keccak_implementation"]
+    assert impl.startswith("c (")
+    assert os.path.realpath(impl[3:-1]).startswith(os.path.realpath(os.path.join(PORT, "_build", "host")) + os.sep)
+    assert res["keccak_calls_served"] > 0
     assert res["input_equal"] is True
     assert res["kzg_equal"] is True
     assert res["txs"] >= 16
