@@ -1399,8 +1399,9 @@ def phase_stark_prove() -> dict:
             stages: dict = {}
 
             def record(title: str, seconds: float) -> None:
-                key = title.removeprefix("stark.") + "_ms"
-                stages[key] = stages.get(key, 0.0) + seconds * 1e3
+                if title.startswith("stark."):
+                    key = title.removeprefix("stark.") + "_ms"
+                    stages[key] = stages.get(key, 0.0) + seconds * 1e3
 
             token = Measurement.subscribe(record)
             torch.cuda.synchronize()
@@ -1463,8 +1464,9 @@ def prove_call_tree_golden() -> None:
         stages: dict = {}
 
         def record(title: str, seconds: float) -> None:
-            key = title.removeprefix("stark.") + "_ms"
-            stages[key] = stages.get(key, 0.0) + seconds * 1e3
+            if title.startswith("stark."):
+                key = title.removeprefix("stark.") + "_ms"
+                stages[key] = stages.get(key, 0.0) + seconds * 1e3
 
         token = Measurement.subscribe(record)
         torch.cuda.synchronize()

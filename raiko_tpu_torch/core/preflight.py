@@ -22,6 +22,7 @@ from ..kzg import eip4844
 from ..mpt import proofs_to_tries
 from ..proto.input import GuestInput, TaikoGuestInput
 from ..proto.types import BlockHeader
+from ..utils.measurement import Measurement
 from ..utils.txlist import generate_transactions
 from . import l1_data
 from .interfaces import PreflightError, ProofRequest
@@ -35,7 +36,9 @@ def preflight(
     request: ProofRequest, chain_specs: SupportedChainSpecs, device
 ) -> GuestInput:
     """The block's guest input; its KZG MSMs and batched sender recovery
-    run on `device` (a torch device, or None for the host path)."""
+    run on `device` (a torch device, or None for the host path).  Its steps
+    are the spans ``preflight.l1``, ``preflight.execute`` and
+    ``preflight.witness``."""
     spec = chain_specs.get(request.network)
     provider = provider_for(spec)
     n = request.block_number
@@ -44,66 +47,71 @@ def preflight(
 
     taiko = TaikoGuestInput()
     if spec.is_taiko:
-        taiko = prepare_taiko_chain_input(request, spec, chain_specs, header, txs, device)
-        exec_txs = generate_transactions(
-            spec,
-            taiko.block_proposed_meta.blob_used,
-            taiko.tx_data,
-            taiko.anchor_tx,
-        )
-    else:
-        exec_txs = txs
+        with Measurement("preflight.l1"):
+            taiko = prepare_taiko_chain_input(request, spec, chain_specs, header, txs, device)
     taiko.prover_data_prover = _hexaddr(request.prover)
     taiko.prover_data_graffiti = _hex32(request.graffiti)
 
-    env = BlockEnv(
-        number=header.number,
-        timestamp=header.timestamp,
-        gas_limit=header.gas_limit,
-        base_fee=header.base_fee_per_gas or 0,
-        coinbase=header.beneficiary,
-        prevrandao=header.mix_hash,
-        chain_id=spec.chain_id,
-        difficulty=header.difficulty,
-    )
-    treasury = None
-    if spec.is_taiko and spec.l2_contract:
-        treasury = bytes.fromhex(spec.l2_contract[2:].zfill(40))
-
-    # optimistic execution loop (ref :116-139)
-    db = ProviderDb(provider, n - 1, parent)
-    for _ in range(MAX_OPTIMISTIC_ITERATIONS):
-        state = StateJournal(db)
-        execute_block_txs(
-            state,
-            env,
-            exec_txs,
-            is_taiko=spec.is_taiko,
-            treasury=treasury,
-            optimistic=True,
-            device=device,
+    # decoding the block's transactions and the optimistic execution loop
+    # (ref :116-139)
+    with Measurement("preflight.execute"):
+        if spec.is_taiko:
+            exec_txs = generate_transactions(
+                spec,
+                taiko.block_proposed_meta.blob_used,
+                taiko.tx_data,
+                taiko.anchor_tx,
+            )
+        else:
+            exec_txs = txs
+        env = BlockEnv(
+            number=header.number,
+            timestamp=header.timestamp,
+            gas_limit=header.gas_limit,
+            base_fee=header.base_fee_per_gas or 0,
+            coinbase=header.beneficiary,
+            prevrandao=header.mix_hash,
+            chain_id=spec.chain_id,
+            difficulty=header.difficulty,
         )
-        apply_withdrawals(state, withdrawals)
-        if db.fetch_data():
-            break
-    else:
-        raise PreflightError("optimistic execution did not converge")
+        treasury = None
+        if spec.is_taiko and spec.l2_contract:
+            treasury = bytes.fromhex(spec.l2_contract[2:].zfill(40))
 
-    # proofs -> sparse tries; final proofs resolve orphaned siblings of
-    # deleted keys (ref :146-157, :1116-1133)
-    initial_proofs, final_proofs = db.get_proofs(n)
-    state_trie, storage_tries = proofs_to_tries(
-        parent.state_root, initial_proofs, final_proofs
-    )
-    proof_keys = db.proof_keys()
-    parent_storage = {
-        addr: (storage_tries.get(addr), proof_keys.get(addr, []))
-        for addr in initial_proofs
-    }
-    contracts = sorted(
-        {info.code for info in db.accounts.values() if info and info.code}
-    )
-    ancestor_headers = db.get_ancestor_headers()
+        db = ProviderDb(provider, n - 1, parent)
+        for _ in range(MAX_OPTIMISTIC_ITERATIONS):
+            state = StateJournal(db)
+            execute_block_txs(
+                state,
+                env,
+                exec_txs,
+                is_taiko=spec.is_taiko,
+                treasury=treasury,
+                optimistic=True,
+                device=device,
+            )
+            apply_withdrawals(state, withdrawals)
+            if db.fetch_data():
+                break
+        else:
+            raise PreflightError("optimistic execution did not converge")
+
+    with Measurement("preflight.witness"):
+        # proofs -> sparse tries; final proofs resolve orphaned siblings of
+        # deleted keys (ref :146-157, :1116-1133)
+        initial_proofs, final_proofs = db.get_proofs(n)
+        state_trie, storage_tries = proofs_to_tries(
+            parent.state_root, initial_proofs, final_proofs
+        )
+        proof_keys = db.proof_keys()
+        parent_storage = {
+            addr: (storage_tries.get(addr), proof_keys.get(addr, []))
+            for addr in initial_proofs
+        }
+        contracts = sorted(
+            {info.code for info in db.accounts.values() if info and info.code}
+        )
+        ancestor_headers = db.get_ancestor_headers()
     return GuestInput(
         chain_spec=spec,
         block_header=header,
@@ -172,7 +180,8 @@ def prepare_taiko_chain_input(
             l1_spec.seconds_per_slot,
         )
         tx_data = l1_data.get_blob_data(l1_spec, slot, blob_hash, device)
-        blob_commitment = eip4844.blob_to_kzg_commitment(tx_data, device)
+        with Measurement("kzg.commit"):
+            blob_commitment = eip4844.blob_to_kzg_commitment(tx_data, device)
         if eip4844.commitment_to_version_hash(blob_commitment) != meta.blob_hash:
             raise PreflightError("blob versioned hash mismatch")
     else:

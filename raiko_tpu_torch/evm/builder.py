@@ -16,6 +16,7 @@ from ..proto import rlp
 from ..proto.input import GuestInput
 from ..proto.types import Account, BlockHeader, KECCAK_EMPTY
 from ..utils import keccak256
+from ..utils.measurement import Measurement
 from ..utils.txlist import encode_transactions, generate_transactions
 from .execute import (
     ANCHOR_GAS_LIMIT,
@@ -90,7 +91,13 @@ def calculate_block_header(
     ``collect``, when given, receives the post-finalize ``state_trie`` /
     ``storage_tries`` so proof backends can build statements over the
     final state (e.g. the batched keccak MPT-preimage STARK).  Senders are
-    recovered on `device` (None: per tx on the host)."""
+    recovered on `device` (None: per tx on the host).  Each call is one
+    ``evm.block_header`` span."""
+    with Measurement("evm.block_header"):
+        return _block_header(input, collect, device)
+
+
+def _block_header(input: GuestInput, collect: dict | None, device) -> BlockHeader:
     db, state_trie, storage_tries = create_mem_db(input)
     header = input.block_header
     spec = input.chain_spec

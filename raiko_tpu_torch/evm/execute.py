@@ -27,6 +27,7 @@ from ..proto.types import (
     KECCAK_EMPTY,
 )
 from ..utils import keccak256
+from ..utils.measurement import Measurement
 from .interpreter import EVM, BlockEnv, TxEnv
 from .state import StateJournal
 
@@ -324,7 +325,8 @@ def _batch_recover_senders(txs, device) -> list | None:
 
     if not secp.use_device_recovery(device):
         return None
-    return secp.recover_senders(txs, device)
+    with Measurement("evm.senders"):
+        return secp.recover_senders(txs, device)
 
 
 def execute_block_txs(

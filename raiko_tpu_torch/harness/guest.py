@@ -19,13 +19,10 @@ def one_shot(verifier: str) -> int:
     from ..evm.builder import calculate_block_header
     from ..proto.input import GuestInput
     from ..proto.instance import ProtocolInstance
-    from ..utils.measurement import CycleTracker
 
     data = sys.stdin.buffer.read()
     gi = GuestInput.from_bytes(data)
-    ct = CycleTracker("execute")
     header = calculate_block_header(gi, device=None)
-    ct.end()
     pi = ProtocolInstance.new(gi, header, verifier, None)
     print(
         json.dumps(

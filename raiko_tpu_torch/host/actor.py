@@ -22,6 +22,7 @@ from ..core.interfaces import ProofRequest, RaikoError, RpcError
 from ..core.orchestrator import Raiko
 from ..core.provider import get_task_data, provider_for
 from ..tasks import TaskDescriptor, TaskManager, TaskStatus
+from ..utils.measurement import Measurement
 from . import cache, metrics
 from .logs import MemStage
 
@@ -127,7 +128,8 @@ class ProofActor:
             self.running.pop(key, None)
 
     def _handle_proof(self, request: ProofRequest, cancel_ev, key=None) -> bytes:
-        """cache -> preflight -> output -> prove (ref :177-273)."""
+        """cache -> preflight -> output -> prove (ref :177-273); each stage
+        is a ``MemStage`` and a ``service.<stage>`` span."""
         import json
 
         from ..provers import ProverCtx
@@ -150,7 +152,7 @@ class ProofActor:
                 gi = None
             t0 = time.perf_counter()
             if gi is None:
-                with MemStage("prepare_input"):
+                with MemStage("prepare_input"), Measurement("service.prepare_input"):
                     gi = raiko.generate_input()
                 cache.set_input(
                     self.config.cache_dir, request.block_number, request.network, gi
@@ -160,7 +162,7 @@ class ProofActor:
             )
             if cancel_ev.is_set():
                 raise _Cancelled()
-            with MemStage("guest_execution"):
+            with MemStage("guest_execution"), Measurement("service.guest_execution"):
                 output = raiko.get_output(gi)
             if cancel_ev.is_set():
                 raise _Cancelled()
@@ -168,7 +170,7 @@ class ProofActor:
             metrics.GUEST_PROOF_REQ_COUNT.labels(guest, block).inc()
             t0 = time.perf_counter()
             try:
-                with MemStage("prove"):
+                with MemStage("prove"), Measurement("service.prove"):
                     proof = raiko.prove(gi, output, ctx=ctx)
                 metrics.GUEST_PROOF_SUCCESS_COUNT.labels(guest, block).inc()
                 metrics.GUEST_PROOF_TIME.labels(guest, block, "true").observe(
@@ -195,9 +197,12 @@ class _Cancelled(Exception):
 def make_task_descriptor(
     request: ProofRequest, chain_specs: SupportedChainSpecs
 ) -> TaskDescriptor:
-    chain_id, blockhash = get_task_data(
-        request.network, request.block_number, chain_specs
-    )
+    """The request's task key, in a ``service.task_key`` span (the server
+    calls it on its executor for every v2 request, each poll too)."""
+    with Measurement("service.task_key"):
+        chain_id, blockhash = get_task_data(
+            request.network, request.block_number, chain_specs
+        )
     return TaskDescriptor(
         chain_id=chain_id,
         blockhash=blockhash,

@@ -30,6 +30,7 @@ from aiohttp import web
 
 from ..core.interfaces import InvalidRequestConfig, ProofRequest, RaikoError, merge_json
 from ..tasks import TaskStatus
+from ..utils.measurement import Measurement
 from . import metrics
 from .actor import ProofActor, make_task_descriptor
 
@@ -177,7 +178,11 @@ async def handle_v1_proof(request: web.Request) -> web.Response:
 
 
 async def handle_v2_proof(request: web.Request) -> web.Response:
-    """Enqueue-or-poll (reference api/v2/proof/mod.rs:34-102)."""
+    """Enqueue-or-poll (reference api/v2/proof/mod.rs:34-102).  The answer,
+    once the task's key and history are known, is a ``service.submit``
+    span where it enqueues the task (or re-enqueues a failed one) and a
+    ``service.poll`` span otherwise: the span opens after the handler's
+    last ``await``."""
     import asyncio
 
     actor: ProofActor = request.app["actor"]
@@ -194,20 +199,21 @@ async def handle_v2_proof(request: web.Request) -> web.Response:
         metrics.HOST_ERROR_COUNT.labels(str(req.block_number)).inc()
         return _err(e.kind, str(e), 500)
     history = actor.tasks.get_task_proving_status(key)
-    if not history:
-        actor.tasks.enqueue_task(key)
+    status = history[-1][0] if history else None
+    if status in (TaskStatus.SUCCESS, TaskStatus.REGISTERED, TaskStatus.WORK_IN_PROGRESS):
+        with Measurement("service.poll"):
+            if status != TaskStatus.SUCCESS:
+                return _ok(_status_json(status))
+            proof = json.loads(actor.tasks.get_task_proof(key))
+            return _ok({"proof": proof, **_status_json(status)})
+    with Measurement("service.submit"):
+        if history:
+            # failed/cancelled: re-enqueue (ref v2/proof/mod.rs:77-92)
+            actor.tasks.update_task_progress(key, TaskStatus.REGISTERED)
+        else:
+            actor.tasks.enqueue_task(key)
         actor.submit(key, req)
         return _ok(_status_json(TaskStatus.REGISTERED))
-    status = history[-1][0]
-    if status == TaskStatus.SUCCESS:
-        proof = json.loads(actor.tasks.get_task_proof(key))
-        return _ok({"proof": proof, **_status_json(status)})
-    if status in (TaskStatus.REGISTERED, TaskStatus.WORK_IN_PROGRESS):
-        return _ok(_status_json(status))
-    # failed/cancelled: re-enqueue (ref v2/proof/mod.rs:77-92)
-    actor.tasks.update_task_progress(key, TaskStatus.REGISTERED)
-    actor.submit(key, req)
-    return _ok(_status_json(TaskStatus.REGISTERED))
 
 
 async def handle_v2_cancel(request: web.Request) -> web.Response:

@@ -24,9 +24,11 @@ def run_prover(
     taiko = guest_input.taiko
     if taiko.blob_commitment is not None and guest_input.chain_spec.is_taiko:
         from ..kzg import eip4844
+        from ..utils.measurement import Measurement
 
         vh = eip4844.commitment_to_version_hash(bytes(taiko.blob_commitment))
-        kzg_proof = eip4844.calc_kzg_proof(taiko.tx_data, vh, ctx.device)
+        with Measurement("kzg.proof"):
+            kzg_proof = eip4844.calc_kzg_proof(taiko.tx_data, vh, ctx.device)
         proof.kzg_proof = "0x" + kzg_proof.hex()
     return proof
 

@@ -37,8 +37,10 @@ the payload.
 Each statement is a ``Measurement`` span (``tpu_stark.reexecute``,
 ``tpu_stark.stark``, ``tpu_stark.mpt``, ``tpu_stark.tx_mpt``,
 ``tpu_stark.receipts_mpt``, ``tpu_stark.chain``, ``tpu_stark.evm``,
-``tpu_stark.prestate``, ``tpu_stark.seal``) and a ``torch.profiler`` range
-of the same name.
+``tpu_stark.prestate``, ``tpu_stark.seal``), and so a ``torch.profiler``
+range of the same name while a profiler records.  Inside the EVM
+statement, ``frames.replay`` spans each frame's replay, and
+``prove_call_tree`` adds ``frames.tables`` and ``frames.serialize``.
 The EVM statement proves its trees on a thread pool, so the spans of the
 prover's stages inside it overlap, and each stage's closing
 ``torch.cuda.synchronize`` waits for the other tree's work too.
@@ -46,10 +48,7 @@ prover's stages inside it overlap, and each stage's closing
 
 from __future__ import annotations
 
-import contextlib
 import json
-
-import torch
 
 from ..core.interfaces import GuestError, Proof, ProofType
 from ..evm.builder import calculate_block_header
@@ -86,19 +85,13 @@ def _stark_device(device):
     return "cpu" if device is None else device
 
 
-@contextlib.contextmanager
-def _statement(slot: str):
-    with Measurement(f"tpu_stark.{slot}"), torch.profiler.record_function(f"tpu_stark.{slot}"):
-        yield
-
-
 class TpuStarkProver(Prover):
     proof_type = ProofType.TPU_STARK
 
     def run(self, guest_input, output, config: dict, ctx) -> Proof:
         device = ctx.device
         collect: dict = {}
-        with _statement("reexecute"):
+        with Measurement("tpu_stark.reexecute"):
             header = calculate_block_header(guest_input, collect, device=device)
             pi = ProtocolInstance.new(guest_input, header, "RISC0", device)
             ih = pi.instance_hash()
@@ -109,11 +102,11 @@ class TpuStarkProver(Prover):
         cached = proof_cache.load_proof(config, "tpu_stark", ih)
         if cached is not None:
             return Proof(proof=json.dumps(cached), input_hash="0x" + ih.hex())
-        with _statement("stark"):
+        with Measurement("tpu_stark.stark"):
             payload = prove_transcript(ih, device)
         v2 = int(config.get("mpt_version", 2)) >= 2
         if config.get("mpt_statement", True) and "state_trie" in collect:
-            with _statement("mpt"):
+            with Measurement("tpu_stark.mpt"):
                 if v2:
                     payload["mpt"] = prove_mpt_containment(
                         collect["state_trie"],
@@ -143,7 +136,7 @@ class TpuStarkProver(Prover):
                 ),
             ):
                 if hashed_preimages(trie):  # empty trie: nothing keccak'd
-                    with _statement(slot):
+                    with Measurement(f"tpu_stark.{slot}"):
                         payload[slot] = prove_mpt_containment(trie, root, device)
         # receipts-root linkage: publish the raw receipt fields so the
         # verifier can RE-DERIVE the receipts trie from them and compare
@@ -172,14 +165,14 @@ class TpuStarkProver(Prover):
         if v2 and config.get("chain_statement", True) and collect.get(
             "header_chain"
         ):
-            with _statement("chain"):
+            with Measurement("tpu_stark.chain"):
                 payload["chain"] = prove_header_chain(collect["header_chain"], device)
         # EVM execution statement: prove covered top-level call frames
         # with the zkEVM tables (stark/airs/evm_air.py), the analog of
         # the zkVM guests' re-execution proof (reference
         # provers/risc0/guest/src/main.rs:15-29)
         if config.get("evm_statement", True) and collect.get("frames"):
-            with _statement("evm"):
+            with Measurement("tpu_stark.evm"):
                 evm = prove_evm_frames(
                     collect["frames"],
                     device,
@@ -197,7 +190,7 @@ class TpuStarkProver(Prover):
                     from .prestate import prove_prestate
 
                     try:
-                        with _statement("prestate"):
+                        with Measurement("tpu_stark.prestate"):
                             pre = prove_prestate(collect, device)
                     except Exception as e:  # pragma: no cover
                         # a prestate failure must not kill the block
@@ -219,7 +212,7 @@ class TpuStarkProver(Prover):
             from .seal import prove_block_seal
 
             try:
-                with _statement("seal"):
+                with Measurement("tpu_stark.seal"):
                     payload["seal"] = prove_block_seal(
                         payload, device, max_tables=config.get("seal_max_tables")
                     )
@@ -554,20 +547,21 @@ def prove_evm_frames(
             },
         )
         try:
-            ft = ea.execute_frame(
-                code,
-                env,
-                int(cand["gas"]),
-                max_steps,
-                calldata=cand.get("calldata"),
-                storage=cand.get("storage"),
-                warm_slots=set(cand.get("warm_slots", ())),
-                world=cand.get("world") or {},
-                warm_addresses=set(cand.get("warm_addresses", ())),
-                acct_ctx=cand.get("acct_ctx") or {},
-                balances=dict(cand.get("balances") or {}),
-                nonces=dict(cand.get("nonces") or {}),
-            )
+            with Measurement("frames.replay"):
+                ft = ea.execute_frame(
+                    code,
+                    env,
+                    int(cand["gas"]),
+                    max_steps,
+                    calldata=cand.get("calldata"),
+                    storage=cand.get("storage"),
+                    warm_slots=set(cand.get("warm_slots", ())),
+                    world=cand.get("world") or {},
+                    warm_addresses=set(cand.get("warm_addresses", ())),
+                    acct_ctx=cand.get("acct_ctx") or {},
+                    balances=dict(cand.get("balances") or {}),
+                    nonces=dict(cand.get("nonces") or {}),
+                )
         except ea.UncoveredFrame:
             continue
         if ft.gas_f != cand["gas_left"]:

@@ -6344,28 +6344,33 @@ def balance_journal(fts: list[FrameTrace]):
 def prove_call_tree(root: FrameTrace, device) -> dict:
     """Prove a call tree (root + every callee frame + composition
     tables + the tree-level balance journal) in ONE multi-table proof
-    with a shared bus, on ``device`` ("cuda" or "cpu")."""
+    with a shared bus, on ``device`` ("cuda" or "cpu").  Building the
+    tables' traces is a ``frames.tables`` span, serialising the proofs a
+    ``frames.serialize`` span."""
+    from ...utils.measurement import Measurement
     from .. import prover as sp
     from ..serde import proof_to_dict
     from .evm_call import EvmBalanceAir
 
-    fts = flatten_call_tree(root)
-    tables = []
-    frames = []
-    for ft in fts:
-        frames.append(frame_record(ft))
-        tables.extend(frame_tables(ft))
-        tables.extend(_frame_extra_tables(ft))
-    out = {"kind": "evm-call-tree-v1", "frames": frames}
-    groups, events = balance_journal(fts)
-    if groups:
-        bal = EvmBalanceAir(groups)
-        tables.append((bal, bal.trace(events), bal.publics()))
-        out["balances"] = [
-            [hex(a), hex(o), hex(f), c] for a, o, f, c in groups
-        ]
+    with Measurement("frames.tables"):
+        fts = flatten_call_tree(root)
+        tables = []
+        frames = []
+        for ft in fts:
+            frames.append(frame_record(ft))
+            tables.extend(frame_tables(ft))
+            tables.extend(_frame_extra_tables(ft))
+        out = {"kind": "evm-call-tree-v1", "frames": frames}
+        groups, events = balance_journal(fts)
+        if groups:
+            bal = EvmBalanceAir(groups)
+            tables.append((bal, bal.trace(events), bal.publics()))
+            out["balances"] = [
+                [hex(a), hex(o), hex(f), c] for a, o, f, c in groups
+            ]
     proofs = sp.prove_tables(tables, device)
-    out["starks"] = [proof_to_dict(p) for p in proofs]
+    with Measurement("frames.serialize"):
+        out["starks"] = [proof_to_dict(p) for p in proofs]
     return out
 
 

@@ -34,8 +34,15 @@ Each stage is a ``Measurement`` span (``stark.trace_commit``,
 ``stark.fri``, ``stark.grind_queries``) that ends after a device
 synchronisation, so a listener reads the device's time with the host's;
 ``stark.transcript`` spans the challenge squeezes between them, where the
-host hashes the transcript.  Each span is also a ``torch.profiler`` range
-of the same name, so a profile attributes the kernels to their stage.
+host hashes the transcript.  Inside the stages, ``aux.columns`` spans the
+host's LogUp columns (``air.aux_trace``) and ``grind.pow`` the
+proof-of-work grind; ``prover.tables`` spans the whole of
+``prove_tables``, so its time outside every ``stark.*`` span is the
+host's work between the stages (each AIR's fixed columns, bus values,
+per-table set-up).  No span but a stage's or the transcript's starts with
+``stark.``: readers sum the stages by that prefix.  A span is also a
+``torch.profiler`` range while a profiler records (``utils/measurement``),
+so a profile attributes the kernels and the device's idle time to them.
 
 ``set_mesh(mesh)`` routes the column commitments (trace, aux, fixed) over
 the ranks of a ``parallel.mesh.Mesh`` (``parallel/stark_dist.py``), bit for
@@ -325,22 +332,18 @@ def _deep_stage(t_lde_, q_lde_, g1d, g2d, c1d, c2d, xs_, nbz, cdz, nbzg, cdzg):
 
 @contextlib.contextmanager
 def _stage(title: str, dev: torch.device):
-    """A stage's ``Measurement`` span, ended once the device has finished
-    the stage's work, and a ``torch.profiler`` range of the same name, so
-    a profile attributes the stage's kernels to it."""
-    span = Measurement(title)
-    with torch.profiler.record_function(title):
+    """A stage's span, ended once the device has finished the stage's work."""
+    with Measurement(title):
         yield
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    span.stop()
 
 
 def _challenge_ef(channel: Channel) -> tuple:
     """Squeeze one EF challenge in a ``stark.transcript`` span: the squeeze
     first hashes every pending absorption (publics, roots, openings) with
     the host Poseidon2, which for a wide table costs as much as a stage."""
-    with Measurement("stark.transcript"), torch.profiler.record_function("stark.transcript"):
+    with Measurement("stark.transcript"):
         return channel.challenge_ef()
 
 
@@ -367,8 +370,12 @@ def prove_tables(
     table's committed data can be chosen adaptively against the bus
     challenge.  Each table's net bus contribution (Air.bus_values) is
     absorbed and bound by that table's own constraints; verify_tables
-    checks the global sum vanishes."""
-    dev = device_mod.get(device)
+    checks the global sum vanishes.  One ``prover.tables`` span holds it all."""
+    with Measurement("prover.tables"):
+        return _prove_tables(tables, device_mod.get(device))
+
+
+def _prove_tables(tables: list[tuple[Air, np.ndarray, list[int]]], dev: torch.device) -> list[StarkProof]:
     channel = Channel()
     channel.absorb_elems([len(tables)])
     ctxs = []
@@ -433,7 +440,8 @@ def prove_tables(
         if air.aux_width:
             with _stage("stark.aux_commit", dev):
                 chal_t = challenges[: air.num_aux_challenges]
-                aux = air.aux_trace(c["trace"], chal_t)
+                with Measurement("aux.columns"):
+                    aux = air.aux_trace(c["trace"], chal_t)
                 assert aux.shape == (c["trace"].shape[0], air.aux_width)
                 aux_m = bb.to_mont(convert.words_from_numpy(aux.T, dev))
                 c["a_coeffs"], c["a_lde"], c["a_levels"] = commit_cols(aux_m, c["dom"].shift)
@@ -547,7 +555,8 @@ def _finish_table(c: dict, channel: Channel, dev: torch.device) -> StarkProof:
 
     # 7. grinding + queries (one gather and one transfer per segment)
     with _stage("stark.grind_queries", dev):
-        pow_nonce = channel.grind(GRIND_BITS)
+        with Measurement("grind.pow"):
+            pow_nonce = channel.grind(GRIND_BITS)
         indices = channel.challenge_indices(NUM_QUERIES, m)
         idx_dev = torch.as_tensor(indices, dtype=torch.int64, device=dev)
 

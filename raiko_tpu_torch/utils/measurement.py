@@ -1,25 +1,41 @@
-"""Instrumentation: wall-clock spans + device step counters
-(reference lib/src/lib.rs Measurement :110-157 / CycleTracker :75-108).
-
-The reference's CycleTracker emits zkVM cycle markers; the TPU analog
-reports wall-time plus optional device-op annotations, printed in the same
-start/end marker style so log tooling can parse both."""
+"""Instrumentation: the port's one span, ``Measurement``
+(reference lib/src/lib.rs Measurement :110-157)."""
 
 from __future__ import annotations
 
 import logging
+import sys
+import threading
 import time
 
 log = logging.getLogger("raiko_tpu")
 
 
+def _profiler_on() -> bool:
+    """Whether torch.profiler is recording: one module lookup and one flag
+    (no profiler can run before torch is imported, and a module that has no
+    device work, such as the guest's re-execution, does not import it)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd.profiler._is_profiler_enabled
+
+
 class Measurement:
-    """Wall-clock span with inplace progress reporting.
+    """A span of work: its seconds on the host clock, and, while
+    torch.profiler records, a profiler range of the same name on the same
+    thread, so a trace puts every launch and every idle gap of the device
+    under the innermost span open on the launching thread.  With no
+    profiler on, a span opens no range.
+
+    Two rules follow from the range: a span stops on the thread that
+    started it, and no span stays open across an ``await`` (the coroutines
+    of one event-loop thread interleave, so their ranges would not nest).
+    A profiler records the ranges of the thread that started it, and of
+    every thread only when asked to (``profile_all_threads``).
 
     ``subscribe(fn)`` registers a listener called as ``fn(title,
-    seconds)`` when any span stops — the hook bench tooling uses to
-    build per-stage breakdowns (tools/bench_block.py) without parsing
-    logs.  Returns a token for ``unsubscribe``."""
+    seconds)`` when any span stops, on the span's thread: the hook the
+    benchmark's per-layer metrics read (``bench_port/run.py``'s ``Spans``).
+    Returns a token for ``unsubscribe``."""
 
     _listeners: dict[int, object] = {}
     _next_token = 0
@@ -36,16 +52,25 @@ class Measurement:
 
     def __init__(self, title: str = ""):
         self.title = title
+        self._range = None
+        if _profiler_on():
+            import torch
+
+            self._range = torch.profiler.record_function(title)
+            self._range.__enter__()
+            self._thread = threading.get_ident()
         self.t0 = time.perf_counter()
         if title:
             log.info("%s...", title)
 
     def stop(self) -> float:
-        return self.stop_with(f"==> {self.title} took")
-
-    def stop_with(self, message: str) -> float:
         dt = time.perf_counter() - self.t0
-        log.info("%s %.3fs", message, dt)
+        if self._range is not None:
+            if threading.get_ident() != self._thread:
+                raise RuntimeError(f"span {self.title!r} stopped on another thread than the one that started it")
+            self._range.__exit__(None, None, None)
+            self._range = None
+        log.info("==> %s took %.3fs", self.title, dt)
         for fn in list(self._listeners.values()):
             try:
                 fn(self.title, dt)
@@ -59,24 +84,3 @@ class Measurement:
     def __exit__(self, *exc):
         self.stop()
         return False
-
-
-class CycleTracker:
-    """start/end markers (reference emits 'cycle-tracker-start/end:' on
-    SP1; we emit the same marker text with wall-nanos so existing parsers
-    work)."""
-
-    def __init__(self, title: str):
-        import sys
-
-        self.title = title
-        self.t0 = time.perf_counter_ns()
-        print(f"cycle-tracker-start: {title}", file=sys.stderr)
-
-    def end(self) -> None:
-        import sys
-
-        print(
-            f"cycle-tracker-end: {self.title} {time.perf_counter_ns() - self.t0}",
-            file=sys.stderr,
-        )
