@@ -142,13 +142,22 @@ def h_batch_inv(vals: list[tuple]) -> list[tuple]:
     return out
 
 
+# The Frobenius map a -> a^(p^k) by constants: x^(i p^k) = x^i W^(i (p^k - 1)/4)
+# (4 divides p - 1), so coefficient i is scaled by FROBENIUS[k][i].
+FROBENIUS = tuple(
+    tuple(pow(W, i * (bb.P**k - 1) // 4, bb.P) for i in range(4)) for k in range(4)
+)
+
+
+def h_frobenius(a, k: int):
+    """a^(p^k) for k in 0..3."""
+    return tuple(x * c % bb.P for x, c in zip(a, FROBENIUS[k]))
+
+
 def h_inv(a):
     """Inverse via the norm map: a^{-1} = conj / norm with
     conj = a^{p} * a^{p^2} * a^{p^3} (norm lands in F_p)."""
-    ap = h_pow(a, bb.P)
-    ap2 = h_pow(ap, bb.P)
-    ap3 = h_pow(ap2, bb.P)
-    conj = h_mul(h_mul(ap, ap2), ap3)
+    conj = h_mul(h_mul(h_frobenius(a, 1), h_frobenius(a, 2)), h_frobenius(a, 3))
     norm = h_mul(a, conj)
     assert norm[1] == norm[2] == norm[3] == 0
     n_inv = pow(norm[0], bb.P - 2, bb.P)
@@ -198,18 +207,6 @@ def npef_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     )
 
 
-def _npef_pow(a: np.ndarray, e: int) -> np.ndarray:
-    result = np.zeros_like(a)
-    result[..., 0] = 1
-    base = a
-    while e:
-        if e & 1:
-            result = npef_mul(result, base)
-        base = npef_mul(base, base)
-        e >>= 1
-    return result
-
-
 def _np_base_inv(x: np.ndarray) -> np.ndarray:
     """Vectorized Fermat inverse in the base field ((n,) uint64)."""
     result = np.ones_like(x)
@@ -223,12 +220,17 @@ def _np_base_inv(x: np.ndarray) -> np.ndarray:
     return result
 
 
+_NP_FROBENIUS = np.array(FROBENIUS, dtype=np.uint64)
+
+
+def npef_frobenius(a: np.ndarray, k: int) -> np.ndarray:
+    """Vectorized a^(p^k) for k in 0..3 (see FROBENIUS)."""
+    return (a % _PU) * _NP_FROBENIUS[k] % _PU
+
+
 def npef_inv(a: np.ndarray) -> np.ndarray:
     """Vectorized EF inverse via the norm map (see h_inv)."""
-    ap = _npef_pow(a, bb.P)
-    ap2 = _npef_pow(ap, bb.P)
-    ap3 = _npef_pow(ap2, bb.P)
-    conj = npef_mul(npef_mul(ap, ap2), ap3)
+    conj = npef_mul(npef_mul(npef_frobenius(a, 1), npef_frobenius(a, 2)), npef_frobenius(a, 3))
     norm = npef_mul(a, conj)
     n_inv = _np_base_inv(norm[..., 0])
     return (conj * n_inv[..., None]) % _PU

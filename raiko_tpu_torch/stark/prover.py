@@ -224,11 +224,7 @@ def _inv_linear_consts(z: tuple, device):
     vectorized base inversion and a cubic EF polynomial evaluation suffice.
     Returns (norm-poly base coeffs (5,), conj-poly EF coeffs (4, 4)) as
     Montgomery tensors on `device`."""
-    conjs = []
-    c = z
-    for _ in range(3):
-        c = ef.h_pow(c, bb.P)
-        conjs.append(c)
+    conjs = [ef.h_frobenius(z, k) for k in (1, 2, 3)]
     coeffs = [ef.H_ONE]
     for r in conjs:
         new = [ef.H_ZERO] * (len(coeffs) + 1)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from raiko_tpu.fields import babybear as jbb
+from raiko_tpu.fields import babybear_ext as jef
 from raiko_tpu.ops import merkle as jmerkle
 from raiko_tpu.ops import ntt as jntt
 from raiko_tpu.ops import ntt_pallas as jntp
@@ -25,6 +26,7 @@ from raiko_tpu.ops import poseidon2 as jp2
 from raiko_tpu.stark import prover as jprover
 from raiko_tpu_torch import convert
 from raiko_tpu_torch.fields import babybear as bb
+from raiko_tpu_torch.fields import babybear_ext as ef
 from raiko_tpu_torch.ops import merkle, ntt, ntt_cuda, poseidon2 as p2, poseidon2_cuda
 from raiko_tpu_torch.stark import prover
 from raiko_tpu_torch.stark.commit_step import commit_step
@@ -102,6 +104,55 @@ def test_babybear_host_helpers_match_jax():
     assert bb.h_inv(12345) == jbb.h_inv(12345) and bb.NPRIME == jbb.NPRIME
     w = bb.two_adic_generator(10)
     np.testing.assert_array_equal(bb.np_powers(w, 777), [pow(w, j, bb.P) for j in range(777)])
+
+
+def _ef_elems(seed: int, shape, kind: str) -> np.ndarray:
+    """(..., 4) standard-form EF elements, none zero: random, base-field
+    (a_1 = a_2 = a_3 = 0), or one non-zero coefficient at a random place."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(1, jbb.P, tuple(shape) + (4,), dtype=np.uint64)
+    if kind == "base":
+        a[..., 1:] = 0
+    elif kind == "one_coeff":
+        keep = rng.integers(0, 4, shape)
+        a[np.arange(4) != keep[..., None]] = 0
+    return a
+
+
+@pytest.mark.parametrize("kind", ["random", "base", "one_coeff"])
+@pytest.mark.parametrize("shape", [(1,), (32,), (2048,), (3, 32)], ids=["1", "32", "2048", "3x32"])
+def test_ef_inverse_matches_jax(shape, kind):
+    """The extension inverse by the Frobenius constants (npef_inv, h_inv,
+    h_batch_inv) against the JAX package's by exponentiations to p."""
+    a = _ef_elems(sum(shape) * 7 + len(kind), shape, kind)
+    got = ef.npef_inv(a)
+    np.testing.assert_array_equal(got, jef.npef_inv(a))
+    one = np.zeros_like(a)
+    one[..., 0] = 1
+    np.testing.assert_array_equal(ef.npef_mul(a, got), one)
+    rows = [tuple(int(v) for v in r) for r in a.reshape(-1, 4)]
+    assert [ef.h_inv(r) for r in rows] == [tuple(int(v) for v in r) for r in got.reshape(-1, 4)]
+    assert [ef.h_inv(r) for r in rows[:48]] == [jef.h_inv(r) for r in rows[:48]]
+    assert ef.h_batch_inv(rows[:48]) == jef.h_batch_inv(rows[:48])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_ef_frobenius_constants(k):
+    """npef_frobenius / h_frobenius are a -> a^(p^k), and k applications of
+    the map composed with 4 - k give a^(p^4) = a."""
+    a = _ef_elems(k, (24,), "random")
+    a[0] = [1, 0, 0, 0]
+    a[1] = [0, 1, 0, 0]
+    rows = [tuple(int(v) for v in r) for r in a]
+    want = [ef.h_pow(r, bb.P**k) for r in rows]
+    assert [ef.h_frobenius(r, k) for r in rows] == want
+    assert [tuple(int(v) for v in r) for r in ef.npef_frobenius(a, k)] == want
+    np.testing.assert_array_equal(ef.npef_frobenius(ef.npef_frobenius(a, k), 4 - k), a)
+    assert [ef.h_frobenius(ef.h_frobenius(r, k), 4 - k) for r in rows] == rows
+    b = a
+    for _ in range(4):
+        b = ef.npef_frobenius(b, 1)
+    np.testing.assert_array_equal(b, a)
 
 
 @pytest.mark.parametrize("log_n", [4, 7, 10, 12])
